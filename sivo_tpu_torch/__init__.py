@@ -13,9 +13,10 @@ mapper. The two Pallas TPU kernels of that path are hand-written CUDA
 kernels for Hopper (``csrc/``), each with a plain PyTorch version beside
 it that serves CPU tensors and the tests.
 
-The package imports no JAX. Of ``sivo_tpu`` it uses only the JAX-free
-modules ``sivo_tpu.config``, ``sivo_tpu.io.{synthetic,trajectory,kitti}``
-and ``sivo_tpu.native``.
+The package imports no JAX and nothing of ``sivo_tpu``: what it needs
+of the JAX package's numpy-only modules it keeps as copies
+(``config.py``, ``io/synthetic.py``, ``runtime/map_state.py``,
+``ops/data/brief_pattern.npy``).
 """
 
 from sivo_tpu_torch.utils import precision as _precision

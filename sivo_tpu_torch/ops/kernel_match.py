@@ -18,21 +18,39 @@ edge cases included: a fully masked row gives best = second = inf and
 both indices 0; a row with one finite entry gives second index 0 (the
 argmin of an all-inf row).
 
-Descriptors arrive packed, (N, 32) uint8 read as 8 x u32, and the
-distance is XOR + popcount; the TPU kernel's f32 0/1 matmul was an MXU
+Descriptors arrive packed, (N, 32) uint8 read as 8 x u32 (256 bits);
+the TPU kernel's f32 0/1 matmul over unpacked bits was an MXU
 workaround.
 
-What bounds it on the H100: at the main path's N = M = 2048 the kernel
-does 4.2M masked pair tests of ~20 integer and float ops each, and reads
-2048 x 52 bytes of columns per block of 8 rows (~28 MB in all, from L2);
-global traffic is the descriptors once plus four (N,) outputs. It is
-bound by instruction issue and the shared-memory reads of the column
-tiles, not by device memory. The design: one warp per row, 8 rows per
-block; the block stages 256-column tiles of descriptors and attributes
-in shared memory once for its 8 rows; lanes stride over the tile keeping
-a running top-2 in registers; a shuffle merge ordered by (distance,
-index) keeps the first-index tie-break. No (N, M) matrix reaches global
-memory. Ragged N and M are handled inside the kernel.
+What bounds it on the H100. Its inputs and outputs are ~0.3 MB at the
+main path's N = M = 2048 (~0.09 us at 3.35 TB/s). Every valid row needs
+the window test against every column (~10 float ops a pair, 67
+TFLOP/s); on the main path only a tenth of the rows or fewer are valid
+(map points or keypoints with a point), so the bytes set the bound.
+The distances of the pairs that pass run on the tensor cores as
+256-bit AND + popcount, for which NVIDIA publishes no H100 rate; the
+bound leaves them out. ``chip_smoke.py`` counts it from each run's
+inputs (``k2_bound``).
+
+The design (``csrc/hamming_top2.cu``), from measurements on the H100
+(PERF.md): distances come from the tensor cores, one
+``mma.m16n8k256.b1.and.popc`` per 16-row x 8-column block (Hamming =
+popc(a) + popc(b) - 2 popc(a & b)), so brute force is not held by the
+CUDA cores' popcount rate; a warp none of whose 16 rows is valid scans
+nothing; a thread tests the windows of its four pairs, and a warp runs
+the mma and the top-2 update only for blocks where some pair passes. A
+CTA owns 32 rows (2 row warps x 4 column warps) and a cluster of 4 CTAs
+splits that row tile's columns, so N = 2048 gives 256 CTAs, one wave on
+132 SMs, and each column is read from L2 once per 32 rows (re-reading
+the columns for every 16 rows held a CUDA-core design with 4 rows per
+warp to the first design's speed).
+Column tiles of 128 arrive through a two-stage cp.async ring while the
+previous tile is scanned. Candidates are 32-bit keys ``distance << 23 |
+index``, so every merge (threads by shuffles, warps through shared
+memory, the cluster's CTAs through distributed shared memory) is a
+min/max on keys that reproduces a serial scan's first-index ties; hence
+``m < 2^23``. No (N, M) matrix reaches global memory. Ragged N and M
+are handled inside the kernel.
 
 On a CPU tensor ``masked_hamming_top2`` runs the plain PyTorch version;
 on a CUDA tensor it launches the kernel or raises.
@@ -49,6 +67,7 @@ from sivo_tpu_torch.utils import kernels
 LAUNCHES = 0  # kernel launches since the last reset (plain calls not counted)
 
 _ROW_CHUNK = 256  # rows per step of the plain version (bounds its memory)
+MAX_COLUMNS = 1 << 23  # the kernel's keys keep the column index in 23 bits
 
 
 def pack_row_attr(u, v, ur, radius, lvl_lo, lvl_hi, valid) -> torch.Tensor:
@@ -77,6 +96,23 @@ def hamming_u8(a_u8: torch.Tensor, b_u8: torch.Tensor) -> torch.Tensor:
     distances (XOR + popcount)."""
     xor = a_u8[:, None, :] ^ b_u8[None, :, :]
     return _popcount_u8(xor).sum(-1, dtype=torch.int32)
+
+
+def pair_mask(row_attr: torch.Tensor, col_attr_t: torch.Tensor,
+              use_ur: bool) -> torch.Tensor:
+    """(n, M) bool: which (row, column) pairs pass the window, level,
+    validity and (with ``use_ur``) right-u tests."""
+    x, y, c_ur, lvl, c_valid = (col_attr_t[k][None, :] for k in range(5))
+    u, v, r_ur, radius, lo, hi, r_valid = (
+        row_attr[:, k:k + 1] for k in range(7)
+    )
+    ok = (
+        ((x - u).abs() <= radius) & ((y - v).abs() <= radius)
+        & (lvl >= lo) & (lvl <= hi) & (r_valid > 0.5) & (c_valid > 0.5)
+    )
+    if use_ur:
+        ok = ok & ((c_ur <= 0.0) | ((r_ur - c_ur).abs() <= radius))
+    return ok
 
 
 def masked_hamming_top2(
@@ -109,20 +145,10 @@ def masked_hamming_top2_plain(
     the kernel must equal on the card."""
     n, m = a_u8.shape[0], b_u8.shape[0]
     dev = a_u8.device
-    x, y, c_ur, lvl, c_valid = (col_attr_t[k][None, :] for k in range(5))
     out = [], [], [], []
     cols = torch.arange(m, device=dev)[None, :]
     for s in range(0, n, _ROW_CHUNK):
-        r = row_attr[s:s + _ROW_CHUNK]
-        u, v, r_ur, radius, lo, hi, r_valid = (
-            r[:, k:k + 1] for k in range(7)
-        )
-        ok = (
-            ((x - u).abs() <= radius) & ((y - v).abs() <= radius)
-            & (lvl >= lo) & (lvl <= hi) & (r_valid > 0.5) & (c_valid > 0.5)
-        )
-        if use_ur:
-            ok = ok & ((c_ur <= 0.0) | ((r_ur - c_ur).abs() <= radius))
+        ok = pair_mask(row_attr[s:s + _ROW_CHUNK], col_attr_t, use_ur)
         ham = hamming_u8(a_u8[s:s + _ROW_CHUNK], b_u8).float()
         dist = torch.where(ok, ham, torch.full_like(ham, float("inf")))
         best_j = torch.argmin(dist, dim=1)
@@ -166,9 +192,12 @@ def masked_hamming_top2_cuda(
             )
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    for name, t in (("a_u8", a_u8), ("b_u8", b_u8)):
+    for name, t in (("a_u8", a_u8), ("b_u8", b_u8), ("row_attr", row_attr)):
         if t.data_ptr() % 16:
             raise ValueError(f"{name} must be 16-byte aligned")
+    if m >= MAX_COLUMNS:
+        raise ValueError(f"{m} columns; the kernel takes fewer than "
+                         f"{MAX_COLUMNS}")
     best_d = torch.empty(n, dtype=torch.float32, device=dev)
     second_d = torch.empty(n, dtype=torch.float32, device=dev)
     best_j = torch.empty(n, dtype=torch.int32, device=dev)

@@ -16,7 +16,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from sivo_tpu.config import SystemConfig
+from sivo_tpu_torch.config import SystemConfig
 from sivo_tpu_torch.models import segnet as segnet_mod
 from sivo_tpu_torch.ops import image as image_ops
 from sivo_tpu_torch.ops import orb as orb_ops

@@ -21,7 +21,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from sivo_tpu.config import SystemConfig
+from sivo_tpu_torch.config import SystemConfig
 from sivo_tpu_torch.geometry.projection import CameraParams, unproject_stereo
 from sivo_tpu_torch.runtime import device_map, kf_store as kfs_mod
 from sivo_tpu_torch.runtime import track_step as ts

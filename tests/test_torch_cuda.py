@@ -2,8 +2,16 @@
 
 These tests need a CUDA card and nvcc (the kernels are built from
 sivo_tpu_torch/csrc on first use); elsewhere they skip. On the GPU
-machine: ``python -m pytest tests/test_torch_cuda.py -q``. The
-full-size checks are in chip_smoke.py; these cover the edge shapes.
+machine: ``python -m pytest --noconftest tests/test_torch_cuda.py -q``
+(``tests/conftest.py`` imports JAX, which that machine lacks). The
+full-size checks are in chip_smoke.py; these cover the edge shapes:
+K2 rows not a multiple of a CTA's 32 or a warp's 16, columns not a
+multiple of the 8-column mma block, the 128-column tile or the 4-CTA
+cluster split (and not of 4, which takes the attributes element by
+element), ties whose columns fall in different CTAs of a cluster, no
+columns, one row, warps with no valid row beside warps with one; K1
+keypoints not a multiple of a block's 16, keypoints at and past the
+clamp edges, a flat patch.
 """
 
 import numpy as np
@@ -22,33 +30,56 @@ def cuda():
     return torch.device("cuda", 0)
 
 
+def _k1_both(cuda, raw, blur, lvl, xy):
+    args = [torch.from_numpy(x).to(cuda) for x in (raw, blur, lvl, xy)]
+    before = kernel_orb.LAUNCHES
+    ang_k, desc_k = kernel_orb.orient_and_describe(*args)
+    assert kernel_orb.LAUNCHES == before + 1
+    ang_p, desc_p = kernel_orb.orient_and_describe_plain(*args)
+    torch.cuda.synchronize()
+    assert float((ang_k - ang_p).abs().max()) <= 1e-4
+    assert torch.equal(orb.unpack_bits(desc_k), orb.unpack_bits(desc_p))
+    return ang_k.cpu().numpy(), desc_k.cpu().numpy()
+
+
 def test_k1_kernel_matches_plain(cuda):
     rng = np.random.default_rng(0)
     L, H, W, n = 3, 96, 160, 77  # n not a multiple of the block
-    raw = torch.from_numpy(rng.uniform(-3, 260, (L, H, W)).astype(np.float32))
-    blur = torch.from_numpy(rng.uniform(-3, 260, (L, H, W)).astype(np.float32))
-    xy = torch.from_numpy(np.stack([rng.integers(-20, W, n),
-                                    rng.integers(-20, H, n)], 1)).float()
-    lvl = torch.from_numpy(rng.integers(0, L, n).astype(np.int32))
-    raw_u8, blur_u8, coords = kernel_orb.prepare(
-        raw.to(cuda), blur.to(cuda), lvl.to(cuda), xy.to(cuda))
-    before = kernel_orb.LAUNCHES
-    ang_k, desc_k = kernel_orb.orient_and_describe(
-        raw.to(cuda), blur.to(cuda), lvl.to(cuda), xy.to(cuda))
-    assert kernel_orb.LAUNCHES == before + 1
-    ang_p, desc_p = kernel_orb.orient_and_describe_plain(raw_u8, blur_u8,
-                                                         coords)
-    torch.cuda.synchronize()
-    assert float((ang_k - ang_p).abs().max()) <= 1e-4
-    ham = (orb.unpack_bits(desc_k) - orb.unpack_bits(desc_p)).abs().sum(1)
-    assert float(ham.mean()) < 1.0 and float(ham.max()) <= 4
+    raw = rng.uniform(-3, 260, (L, H, W)).astype(np.float32)
+    blur = rng.uniform(-3, 260, (L, H, W)).astype(np.float32)
+    xy = np.stack([rng.integers(-20, W, n), rng.integers(-20, H, n)],
+                  1).astype(np.float32)
+    lvl = rng.integers(0, L, n).astype(np.int32)
+    _k1_both(cuda, raw, blur, lvl, xy)
 
 
-@pytest.mark.parametrize("n,m,use_ur", [(2048, 2048, True), (37, 53, True),
-                                         (1, 300, False), (300, 1, False),
-                                         (257, 0, True)])
-def test_k2_kernel_equals_plain(cuda, n, m, use_ur):
-    g = torch.Generator(device=cuda).manual_seed(n + m)
+def test_k1_half_values_and_clamp_edges(cuda):
+    """Exact .5 pixels (round half to even), values outside 0..255, and
+    keypoints at, inside and past every clamp edge."""
+    rng = np.random.default_rng(1)
+    L, H, W = 2, 80, 120
+    raw = (rng.integers(-40, 560, (L, H, W)) / 2).astype(np.float32)
+    blur = (rng.integers(-40, 560, (L, H, W)) / 2).astype(np.float32)
+    edge_x = [-60, -20, -1, 0, 1, W - 38, W - 37, W - 20, W, W + 50]
+    edge_y = [-60, -19, -1, 0, 1, H - 38, H - 37, H - 20, H, H + 50]
+    xy = np.array([(x, y) for x in edge_x for y in edge_y], np.float32)
+    xy[::3] += 0.75  # truncated toward zero
+    lvl = rng.integers(0, L, len(xy)).astype(np.int32)
+    _k1_both(cuda, raw, blur, lvl, xy)
+
+
+def test_k1_flat_patch(cuda):
+    """m01 = m10 = 0: every bit 0 and angle 0."""
+    L, H, W = 1, 64, 64
+    canvas = np.full((L, H, W), 77.0, np.float32)
+    xy = np.full((33, 2), 7.0, np.float32)
+    lvl = np.zeros(33, np.int32)
+    ang, desc = _k1_both(cuda, canvas, canvas.copy(), lvl, xy)
+    assert (desc == 0).all() and (ang == 0).all()
+
+
+def _k2_problem(cuda, n, m, seed):
+    g = torch.Generator(device=cuda).manual_seed(seed)
 
     def rnd(k, lo, hi):
         return lo + (hi - lo) * torch.rand(k, generator=g, device=cuda)
@@ -68,14 +99,73 @@ def test_k2_kernel_equals_plain(cuda, n, m, use_ur):
         rnd(m, 0, 1024), rnd(m, 0, 352),
         torch.where(rnd(m, 0, 1) < 0.5, rnd(m, 0, 1024), -1.0),
         torch.floor(rnd(m, 0, 8)), rnd(m, 0, 1) < 0.9)
+    return a, b, row, col
+
+
+@pytest.mark.parametrize("n,m,use_ur", [(2048, 2048, True), (37, 53, True),
+                                         (1, 300, False), (300, 1, False),
+                                         (257, 0, True), (1, 2048, True),
+                                         (17, 129, False), (33, 515, True),
+                                         (100, 1663, False)])
+def test_k2_kernel_equals_plain(cuda, n, m, use_ur):
+    a, b, row, col = _k2_problem(cuda, n, m, seed=n + m)
+    before = kernel_match.LAUNCHES
     out_k = kernel_match.masked_hamming_top2(a, b, row, col, use_ur)
+    assert kernel_match.LAUNCHES == before + 1
     if m == 0:
         assert torch.isinf(out_k[0]).all() and (out_k[2] == 0).all()
+        assert torch.isinf(out_k[1]).all() and (out_k[3] == 0).all()
         return
     out_p = kernel_match.masked_hamming_top2_plain(a, b, row, col, use_ur)
     torch.cuda.synchronize()
     for k, p in zip(out_k, out_p):
         assert torch.equal(k, p)
+
+
+@pytest.mark.parametrize("use_ur", [True, False])
+def test_k2_sparse_valid_rows(cuda, use_ur):
+    """Few valid rows, as on the main path: most 16-row warps hold none
+    and scan nothing, beside warps whose one valid row is their first,
+    their last, or in the last, partial warp."""
+    n, m = 301, 700
+    a, b, row, col = _k2_problem(cuda, n, m, seed=11)
+    valid = torch.zeros(n, dtype=torch.bool, device=cuda)
+    valid[[0, 15, 47, 64, 65, 200, 300]] = True
+    row[:, 6] = valid.float()
+    out_k = kernel_match.masked_hamming_top2(a, b, row, col, use_ur)
+    out_p = kernel_match.masked_hamming_top2_plain(a, b, row, col, use_ur)
+    torch.cuda.synchronize()
+    for k, p in zip(out_k, out_p):
+        assert torch.equal(k, p)
+    assert bool(torch.isfinite(out_k[0][valid]).any())
+    assert torch.isinf(out_k[0][~valid]).all()
+
+
+def test_k2_ties_across_cluster_ctas(cuda):
+    """Row 0's descriptor sits at distance 0 in columns scanned by
+    different CTAs of the cluster (128-column tiles dealt round-robin to
+    4 CTAs): the first index is best and the second index second."""
+    n, m = 3, 1100
+    a, b, row, col = _k2_problem(cuda, n, m, seed=5)
+    b[:] = a[1]  # every column at some equal distance from row 0 ...
+    for j in (1000, 700, 517, 133):  # tiles 7, 5, 4, 1: CTAs 3, 1, 0, 1
+        b[j] = a[0]
+    ones = torch.ones(n, device=cuda)
+    row = kernel_match.pack_row_attr(0 * ones, 0 * ones, 0 * ones,
+                                     ones * float("inf"), -ones, 9 * ones,
+                                     ones > 0)
+    col = kernel_match.pack_col_attr_t(*(torch.zeros(m, device=cuda)
+                                         for _ in range(4)),
+                                       torch.ones(m, device=cuda) > 0)
+    out_k = kernel_match.masked_hamming_top2(a, b, row, col, False)
+    out_p = kernel_match.masked_hamming_top2_plain(a, b, row, col, False)
+    torch.cuda.synchronize()
+    for k, p in zip(out_k, out_p):
+        assert torch.equal(k, p)
+    assert float(out_k[0][0]) == 0.0 and float(out_k[1][0]) == 0.0
+    assert int(out_k[2][0]) == 133 and int(out_k[3][0]) == 517
+    # row 1 equals every other column: ties everywhere, indices 0 and 1
+    assert int(out_k[2][1]) == 0 and int(out_k[3][1]) == 1
 
 
 def test_wrappers_reject_bad_inputs(cuda):
@@ -87,6 +177,10 @@ def test_wrappers_reject_bad_inputs(cuda):
     with pytest.raises(ValueError):
         kernel_match.masked_hamming_top2(a, a, row.cpu(), col)
     raw = torch.zeros((1, 64, 64), dtype=torch.uint8, device=cuda)
-    coords = torch.zeros((4, 3), dtype=torch.int64, device=cuda)
+    lvl = torch.zeros(4, dtype=torch.int32, device=cuda)
+    xy = torch.zeros((4, 2), device=cuda)
     with pytest.raises(ValueError):
-        kernel_orb.orb_describe_cuda(raw, raw, coords)
+        kernel_orb.orb_describe_cuda(raw, raw, lvl, xy)
+    with pytest.raises(ValueError):
+        kernel_orb.orb_describe_cuda(raw.float(), raw.float(), lvl.long(),
+                                     xy)

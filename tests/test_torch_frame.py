@@ -17,24 +17,31 @@ import numpy as np
 import pytest
 import torch
 
-from sivo_tpu.config import CameraConfig, SystemConfig
+from sivo_tpu import config as j_config
 from sivo_tpu.io import synthetic
 from sivo_tpu.runtime import frame as j_frame
+from sivo_tpu_torch import config as t_config
 from sivo_tpu_torch.ops import orb as t_orb
 from sivo_tpu_torch.runtime import frame as t_frame
 
 torch.set_num_threads(2)
-CAM = CameraConfig(fx=180.0, fy=180.0, cx=160.0, cy=96.0, width=320,
-                   height=192, bf=180.0 * 0.54, fps=10.0)
+CAM_FIELDS = dict(fx=180.0, fy=180.0, cx=160.0, cy=96.0, width=320,
+                  height=192, bf=180.0 * 0.54, fps=10.0)
+CAM = j_config.CameraConfig(**CAM_FIELDS)
+
+
+def _cfg(config):
+    """The test configuration built from ``config``, the JAX package's
+    config module or the port's."""
+    cfg = config.SystemConfig()
+    return dataclasses.replace(
+        cfg, camera=config.CameraConfig(**CAM_FIELDS),
+        orb=dataclasses.replace(cfg.orb, n_features=600, max_keypoints=1024),
+    )
 
 
 @pytest.fixture(scope="module")
 def frames():
-    cfg = SystemConfig()
-    cfg = dataclasses.replace(
-        cfg, camera=CAM,
-        orb=dataclasses.replace(cfg.orb, n_features=600, max_keypoints=1024),
-    )
     world = synthetic.make_world(CAM, seed=0)
     gt = synthetic.forward_trajectory(n_frames=3, speed=0.5)
     left, right, cls_map = synthetic.render_sequence(world, gt[2:3])
@@ -43,7 +50,7 @@ def frames():
     mp = pytest.MonkeyPatch()
     mp.setenv("SIVO_FORCE_PALLAS", "1")
     try:
-        statics = j_frame.make_statics(cfg)
+        statics = j_frame.make_statics(_cfg(j_config))
         pre = j_frame.frontend_pre(
             None, None, statics, jnp.asarray(left[0]),
             jnp.asarray(right[0]), None,
@@ -56,7 +63,7 @@ def frames():
     finally:
         mp.undo()
     ft = t_frame.build_frame_nosegnet(
-        t_frame.make_statics(cfg), left[0], right[0], cls, conf, ent,
+        t_frame.make_statics(_cfg(t_config)), left[0], right[0], cls, conf, ent,
         device=torch.device("cpu"),
     )
     fj = {k: np.asarray(v) for k, v in fj._asdict().items()}

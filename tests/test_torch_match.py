@@ -103,6 +103,41 @@ def test_top2_masked_and_single_candidate_rows():
     assert np.isinf(second_d[16:32]).all() and (second_j[16:32] == 0).all()
 
 
+@pytest.mark.parametrize("use_ur", [True, False])
+@pytest.mark.parametrize("n,m", [(45, 130), (17, 515)])
+def test_top2_masked_single_and_tied_rows_ragged(use_ur, n, m):
+    """Ragged shapes (rows not a multiple of 16, columns not a multiple
+    of 128) with fully masked rows, single-candidate rows, and rows
+    whose candidates all tie at distance 0 (first index wins)."""
+    p = _random_problem(seed=n + m + use_ur, n=n, m=m)
+    p["r_valid"][:5] = False  # fully masked rows
+    for i in range(5, 10):  # exactly one candidate: a tight window on it
+        j = (7 * i) % m
+        p["u"][i], p["v"][i] = p["x"][j], p["y"][j]
+        p["radius"][i] = 0.0
+        p["lo"][i] = p["hi"][i] = p["c_level"][j]
+        p["r_valid"][i] = p["c_valid"][j] = True
+        p["c_ur"][j] = -1.0
+    tied = [m - 1, m // 2, 3]  # the same descriptor in three columns
+    for i in range(10, 13):
+        p["b"][tied] = p["a"][i]
+        p["radius"][i] = np.inf
+        p["lo"][i], p["hi"][i] = -1.0, 9.0
+        p["r_valid"][i] = True
+        p["c_valid"][tied] = True
+        p["c_ur"][tied] = -1.0
+    out_j, out_t = _both(p, use_ur)
+    _assert_equal(out_j, out_t)
+    best_d, second_d, best_j, second_j = out_t
+    assert np.isinf(best_d[:5]).all() and (best_j[:5] == 0).all()
+    assert np.isinf(second_d[5:10]).all() and (second_j[5:10] == 0).all()
+    assert np.isfinite(best_d[5:10]).all()
+    zero = np.flatnonzero((p["b"] == p["a"][12]).all(1) & p["c_valid"])
+    assert zero[0] <= 3 and len(zero) >= 3
+    assert best_d[12] == 0 and second_d[12] == 0
+    assert best_j[12] == zero[0] and second_j[12] == zero[1]
+
+
 def test_resolve_matches_jax():
     rng = np.random.default_rng(5)
     ns, nd = 400, 120

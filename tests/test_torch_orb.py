@@ -14,13 +14,14 @@ import numpy as np
 import pytest
 import torch
 
-from sivo_tpu.config import CameraConfig, SystemConfig
+from sivo_tpu import config as j_config
 from sivo_tpu.io import synthetic
 from sivo_tpu.ops import fast as j_fast
 from sivo_tpu.ops import image as j_image
 from sivo_tpu.ops import orb as j_orb
 from sivo_tpu.ops import pallas_orb
 from sivo_tpu.runtime import frame as j_frame
+from sivo_tpu_torch import config as t_config
 from sivo_tpu_torch.ops import fast as t_fast
 from sivo_tpu_torch.ops import image as t_image
 from sivo_tpu_torch.ops import kernel_orb
@@ -29,14 +30,17 @@ from sivo_tpu_torch.runtime import frame as t_frame
 
 torch.set_num_threads(2)
 CPU = torch.device("cpu")
-CAM = CameraConfig(fx=180.0, fy=180.0, cx=160.0, cy=96.0, width=320,
-                   height=192, bf=180.0 * 0.54, fps=10.0)
+CAM_FIELDS = dict(fx=180.0, fy=180.0, cx=160.0, cy=96.0, width=320,
+                  height=192, bf=180.0 * 0.54, fps=10.0)
+CAM = j_config.CameraConfig(**CAM_FIELDS)
 
 
-def _cfg():
-    cfg = SystemConfig()
+def _cfg(config):
+    """The test configuration built from ``config``, the JAX package's
+    config module or the port's."""
+    cfg = config.SystemConfig()
     return dataclasses.replace(
-        cfg, camera=CAM,
+        cfg, camera=config.CameraConfig(**CAM_FIELDS),
         orb=dataclasses.replace(cfg.orb, n_features=600, max_keypoints=1024),
     )
 
@@ -90,6 +94,48 @@ def test_k1_rounds_float_canvases_to_u8_and_clamps():
     assert np.mean(ham) < 1.0 and (ham <= 4).all(), ham
 
 
+@pytest.mark.parametrize("seed", [0, 1])
+def test_k1_plain_on_float_canvases_equals_pallas_prepare_path(seed):
+    """The plain version takes the float canvases and rounds the pixels
+    it reads; the JAX package's ``prepare`` rounds whole canvases to u8
+    and its kernel (interpreted) describes. Canvases of half-integers
+    from -20 to 280 exercise round-half-to-even and both clamp ends;
+    keypoints reach past every edge. Descriptors must be equal; angles
+    agree to 1e-6 (measured: 1.2e-7, atan2 in the last ulp)."""
+    rng = np.random.default_rng(seed)
+    L, H, W = 3, 96, 160
+    raw = (rng.integers(-40, 560, (L, H, W)) / 2).astype(np.float32)
+    blur = (rng.integers(-40, 560, (L, H, W)) / 2).astype(np.float32)
+    assert (raw % 1 == 0.5).mean() > 0.4
+    n = 6 * pallas_orb.BK
+    lvl = rng.integers(0, L, n).astype(np.int32)
+    xy = np.stack([rng.integers(-30, W, n), rng.integers(-30, H, n)],
+                  1).astype(np.float32)
+    ang_j, _, packed_j = pallas_orb.describe_prepared(*pallas_orb.prepare(
+        jnp.asarray(raw), jnp.asarray(blur), jnp.asarray(lvl),
+        jnp.asarray(xy)))
+    ang_t, packed_t = kernel_orb.orient_and_describe_plain(
+        *(torch.from_numpy(x) for x in (raw, blur, lvl, xy)))
+    np.testing.assert_array_equal(packed_t.numpy(), np.asarray(packed_j))
+    np.testing.assert_allclose(ang_t.numpy(), np.asarray(ang_j), rtol=0,
+                               atol=1e-6)
+
+
+def test_kernel_tables_encode_pattern_and_mask():
+    """The kernel's tables: the pattern rows as little-endian int8
+    words, then each mask column as a word with bit r for row r."""
+    t = kernel_orb.kernel_tables()
+    assert t.dtype == np.int32 and t.shape == (288,)
+    words = t[:256].view(np.uint32)
+    for k in range(4):
+        got = ((words >> (8 * k)) & 0xFF).astype(np.uint8).view(np.int8)
+        np.testing.assert_array_equal(got, kernel_orb.PATTERN[:, k])
+    mask = kernel_orb.ic_angle_mask().astype(bool)
+    bits = (t[256:287, None] >> np.arange(31)[None, :]) & 1
+    np.testing.assert_array_equal(bits.T.astype(bool), mask)
+    assert t[287] == 0
+
+
 def test_cpu_tensors_take_the_plain_path():
     """On CPU tensors the dispatcher runs the plain version, which does
     not count as a kernel launch."""
@@ -131,7 +177,7 @@ def rendered():
 
 def test_pyramid_matches_jax(rendered):
     left, _ = rendered
-    spec = t_frame.make_statics(_cfg()).spec
+    spec = t_frame.make_statics(_cfg(t_config)).spec
     jr, jb = j_image.build_pyramid(jnp.asarray(left[0], jnp.float32), spec)
     tr, tb = t_image.build_pyramid(torch.from_numpy(left[0]).float(), spec)
     # antialiased bilinear resize: PyTorch's filter and jax.image.resize
@@ -145,7 +191,7 @@ def test_fast_and_selection_exact_on_jax_canvases(rendered, image):
     """The same float canvases (JAX's build_pyramid) into both: FAST
     score maps and the selected keypoints must be identical."""
     left, right = rendered
-    statics = j_frame.make_statics(_cfg())
+    statics = j_frame.make_statics(_cfg(j_config))
     gray = (left if image == 0 else right)[1].astype(np.float32)
     raw, _ = j_image.build_pyramid(jnp.asarray(gray), statics.spec)
     region_j = j_image.level_valid_mask(statics.spec, margin=16)

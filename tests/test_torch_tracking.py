@@ -18,26 +18,30 @@ import numpy as np
 import pytest
 import torch
 
-from sivo_tpu.config import CameraConfig, SystemConfig
+from sivo_tpu import config as j_config
 from sivo_tpu.io import synthetic
 from sivo_tpu.runtime import frame as j_frame
 from sivo_tpu.runtime.map_state import MapState as JMapState
 from sivo_tpu.runtime.tracking import Tracker as JTracker
+from sivo_tpu_torch import config as t_config
 from sivo_tpu_torch.runtime import frame as t_frame
 from sivo_tpu_torch.runtime.map_state import MapState
 from sivo_tpu_torch.runtime.tracking import Tracker, TrackingState
 
 torch.set_num_threads(2)
 CPU = torch.device("cpu")
-CAM = CameraConfig(fx=180.0, fy=180.0, cx=160.0, cy=96.0, width=320,
-                   height=192, bf=180.0 * 0.54, fps=10.0)
+CAM_FIELDS = dict(fx=180.0, fy=180.0, cx=160.0, cy=96.0, width=320,
+                  height=192, bf=180.0 * 0.54, fps=10.0)
+CAM = j_config.CameraConfig(**CAM_FIELDS)
 N_PARITY = 10
 
 
-def make_cfg():
-    cfg = SystemConfig()
+def make_cfg(config):
+    """The test configuration built from ``config``, the JAX package's
+    config module or the port's."""
+    cfg = config.SystemConfig()
     return dataclasses.replace(
-        cfg, camera=CAM,
+        cfg, camera=config.CameraConfig(**CAM_FIELDS),
         orb=dataclasses.replace(cfg.orb, n_features=600, max_keypoints=1024),
         tracking=dataclasses.replace(cfg.tracking, min_init_keypoints=150),
         semantic=dataclasses.replace(cfg.semantic, th_entropy_reduction=0.02),
@@ -60,10 +64,9 @@ def sequence():
 @pytest.fixture(scope="module")
 def parity_run(sequence):
     gt, left, right, (cls, conf, ent) = sequence
-    cfg = make_cfg()
-    statics = j_frame.make_statics(cfg)
-    jt = JTracker(cfg=cfg, map=JMapState(**_map()))
-    tt = Tracker(cfg=cfg, map=MapState(**_map()), device=CPU)
+    statics = j_frame.make_statics(make_cfg(j_config))
+    jt = JTracker(cfg=make_cfg(j_config), map=JMapState(**_map()))
+    tt = Tracker(cfg=make_cfg(t_config), map=MapState(**_map()), device=CPU)
     poses_j, poses_t = [], []
     for i in range(N_PARITY):
         fj = j_frame.build_frame_nosegnet(
@@ -103,7 +106,7 @@ def test_tracker_parity_counts(parity_run):
 @pytest.fixture(scope="module")
 def own_run(sequence):
     gt, left, right, (cls, conf, ent) = sequence
-    cfg = make_cfg()
+    cfg = make_cfg(t_config)
     statics = t_frame.make_statics(cfg)
     tracker = Tracker(cfg=cfg, map=MapState(**_map()), device=CPU)
     est = []
