@@ -13,16 +13,38 @@ each raising on failure:
    (angle atol 1e-4, 0 differing bits); times; bound;
 3. SegNet basic forward at 352x1024, MC=3, in cfg.semantic.cnn_dtype
    with seeded weights: probabilities finite and summing to 1;
-4. K2 against its plain version on the inputs of its three searches on
-   the main path (motion, local map, brute force, each at (2048, 2048)),
-   kept from their last calls in one run of the slice, which is also the
-   slice's warm-up; distances and both argmins must be equal; times;
-   bound per case;
+4. K2 against its plain version on the inputs of its four searches on
+   the main path, each at (2048, 2048): motion, local map and brute
+   force kept from their last calls in one run of the slice (the
+   slice's warm-up), and the mapper's fusion kept from its last call in
+   the warm-up run of phase 6; distances and both argmins must be equal;
+   times; bound per case;
 5. the slice through the port's entry points (``build_frame`` ->
    ``Tracker.track``, no mapper) on the bench loop world's first 40
    frames, against the JAX package's CPU run of the same frames (0 lost,
    ATE 0.0145 m, 12 keyframes): 0 lost, ATE <= 0.10 m, keyframes 12 +- 3,
-   K1 launched twice per frame and K2 at least once per tracked frame.
+   K1 launched twice per frame and K2 at least once per tracked frame;
+6. the SLAM session through the system's entry point:
+   ``System(cfg, device=cuda, max_keyframes=256, max_points=32768)``,
+   ``track_stereo`` on the same 40 frames (SegNet basic running, the
+   renderer's semantics as ``sem_override``), ``flush``, then
+   ``save_trajectory_kitti`` and ``shutdown`` into a temporary
+   directory. Against the JAX package's CPU ``System`` on the same
+   frames (``tools/loop40_jax_reference.py``, two runs, whose mapper
+   timing differs: 0 lost, ATE 0.0150 / 0.0080 m, 12 / 13 keyframes, 8
+   BA solves, 0 / 1 points triangulated): 0 lost, ATE <= 0.10 m over
+   ``frame_poses()``, keyframes within 3 of 12-13, at least one BA
+   solve applied, triangulation run on the keyframes, K1 launched twice
+   per frame, the mapper's K2 launches equal to the fusion searches it
+   counted, a 40-line trajectory file and the counts file. This cell's
+   entropy-reduction gate (4.0, the reference's KITTI setting) lets
+   almost no triangulated candidate through, in the JAX package too, so
+   a minting run follows: the first 12 frames with the gate at 0.02 (as
+   in tests/test_compact.py), where triangulation must mint points and
+   the host and device maps must hold the same ones. Phase 6's warm-up
+   run keeps a copy of K2's inputs at the last fusion search (phase 4's
+   fusion case) and of the last local BA problem, which is replayed once
+   under the profiler for its device time and launches per solve.
 
 Kernel times: ``BATCH`` back-to-back calls captured in a CUDA graph,
 its replay timed between two CUDA events and divided by ``BATCH``; the
@@ -39,13 +61,16 @@ kernels' launches, errors, times and bounds; the last line is
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 import warnings
+from collections import Counter
 
 import numpy as np
 import torch
@@ -57,8 +82,11 @@ from sivo_tpu_torch.io import synthetic  # noqa: E402
 from sivo_tpu_torch.models import segnet  # noqa: E402
 from sivo_tpu_torch.ops import (  # noqa: E402
     image, kernel_match, kernel_orb, matching, orb)
+from sivo_tpu_torch.optim import local_ba  # noqa: E402
 from sivo_tpu_torch.runtime import frame as frame_mod  # noqa: E402
 from sivo_tpu_torch.runtime.map_state import MapState  # noqa: E402
+from sivo_tpu_torch.runtime.mapping import LocalMapper  # noqa: E402
+from sivo_tpu_torch.runtime.system import System  # noqa: E402
 from sivo_tpu_torch.runtime.tracking import Tracker  # noqa: E402
 from sivo_tpu_torch.utils import kernels  # noqa: E402
 
@@ -365,7 +393,7 @@ def k2_bound(a_u8, b_u8, row, col, use_ur) -> tuple[float, str, float]:
 
 
 def phase_k2(cases: dict, calls_per_frame: dict) -> dict:
-    """Phase 4: K2 against its plain version in the three cases."""
+    """Phase 4: K2 against its plain version in each case."""
     per_case, err = {}, 0.0
     for name, args in cases.items():
         out_k = kernel_match.masked_hamming_top2_cuda(*args)
@@ -439,6 +467,278 @@ def phase_slice(cfg, statics, model, gt, left, right, sems, dev) -> dict:
     return launches
 
 
+
+# the JAX package's CPU System on the same 40 frames, two runs
+# (tools/loop40_jax_reference.py); its mapper's timing differs by run
+REF_SYSTEM = {"lost": (0, 0), "ate": (0.0150, 0.0080), "keyframes": (12, 13),
+              "ba_solves": (8, 8), "triangulated": (0, 1)}
+# the minting run: its frames and its entropy-reduction gate, the one
+# tests/test_compact.py and the port's session tests use
+MINT_FRAMES, MINT_TH_ENTROPY = 12, 0.02
+
+
+def session_stats(system, gt) -> dict:
+    """Lost frames, ATE over ``frame_poses()``, keyframes, BA solves and
+    points minted by triangulation of a flushed session."""
+    poses = system.frame_poses()
+    _need(poses.shape == (len(gt), 4, 4) and np.isfinite(poses).all(),
+          f"frame_poses {poses.shape}")
+    return {"lost": system.n_lost(), "ate": synthetic.ate_rmse(poses, gt),
+            "keyframes": system.map.n_keyframes,
+            "ba_solves": system.mapper.ba_solves,
+            "triangulated": system.mapper.points_triangulated}
+
+
+def _stats_text(s: dict) -> str:
+    return (f"lost {s['lost']}, ATE {s['ate']:.4f} m, keyframes "
+            f"{s['keyframes']}, BA solves {s['ba_solves']}, triangulated "
+            f"{s['triangulated']}")
+
+
+def run_system(cfg, left, right, sems, dev, count_syncs: bool = False):
+    """The port's SLAM session: ``System.track_stereo`` on each frame
+    (host clock between device syncs), then ``flush``. With
+    ``count_syncs`` torch's sync debug mode is on and the syncs raised
+    inside the mapper's ``advance`` are counted apart. Returns (system,
+    per-frame ms, sync warnings, syncs inside the mapper)."""
+    system = System(cfg=cfg, device=dev, max_keyframes=256,
+                    max_points=32768)
+    frame_ms, in_mapper, depth = [], [0], [0]
+    advance = LocalMapper.advance
+
+    def is_sync(w):
+        return "synchroniz" in str(w.message)
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+
+        def counted_advance(self, tracker, block=False):
+            before = len(caught)
+            depth[0] += 1  # advance(block=True) calls itself
+            try:
+                return advance(self, tracker, block)
+            finally:
+                depth[0] -= 1
+                if depth[0] == 0:
+                    in_mapper[0] += sum(map(is_sync, caught[before:]))
+
+        if count_syncs:
+            torch.cuda.set_sync_debug_mode("warn")
+            LocalMapper.advance = counted_advance
+        try:
+            for i in range(len(left)):
+                cls, conf, ent = sems[i]
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                system.track_stereo(left[i], right[i], i * 0.1,
+                                    sem_override=(cls, conf, ent, False))
+                torch.cuda.synchronize()
+                frame_ms.append(1e3 * (time.perf_counter() - t0))
+            system.flush()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+            LocalMapper.advance = advance
+    return system, frame_ms, [w for w in caught if is_sync(w)], in_mapper[0]
+
+
+def capture_system_cases(cfg, gt, left, right, sems, dev):
+    """One run of the session (the warm-up of phase 6) that keeps a copy
+    of K2's inputs at the last fusion search and of the last local BA
+    problem. Returns (K2 fusion case, fusion searches per frame, BA
+    problem, the run's ``session_stats``)."""
+    top2 = kernel_match.masked_hamming_top2
+    fuse_search = LocalMapper._fuse_search
+    solve = local_ba.local_bundle_adjustment
+    kept, in_fusion = {}, [False]
+
+    def record(a_u8, b_u8, row, col, use_ur=True):
+        if in_fusion[0]:
+            kept["k2"] = (*(t.clone() for t in (a_u8, b_u8, row, col)),
+                          use_ur)
+            kept["calls"] = kept.get("calls", 0) + 1
+        return top2(a_u8, b_u8, row, col, use_ur)
+
+    def tagged_fuse_search(self, *args, **kwargs):
+        in_fusion[0] = True
+        try:
+            return fuse_search(self, *args, **kwargs)
+        finally:
+            in_fusion[0] = False
+
+    def kept_solve(prob, newest, cam):
+        kept["ba"] = (local_ba.BAProblem(*(t.clone() for t in prob)),
+                      newest, cam)
+        return solve(prob, newest, cam)
+
+    kernel_match.masked_hamming_top2 = record
+    LocalMapper._fuse_search = tagged_fuse_search
+    local_ba.local_bundle_adjustment = kept_solve
+    try:
+        system = run_system(cfg, left, right, sems, dev)[0]
+    finally:
+        kernel_match.masked_hamming_top2 = top2
+        LocalMapper._fuse_search = fuse_search
+        local_ba.local_bundle_adjustment = solve
+    _need("k2" in kept and "ba" in kept,
+          f"phase 6 warm-up ran fusion/BA: {sorted(kept)}")
+    shape = (kept["k2"][0].shape[0], kept["k2"][1].shape[0])
+    _need(shape == (2048, 2048), f"K2 fusion shape {shape}")
+    return (kept["k2"], kept["calls"] / len(left), kept["ba"],
+            session_stats(system, gt))
+
+
+def ba_cost(ba_case) -> dict:
+    """One local BA solve replayed on the kept problem: stream ms per
+    solve (CUDA events around the eager call, host launch gaps included,
+    median of 5), and under torch.profiler the device activities it
+    launches and their summed device time."""
+    prob, newest, cam = ba_case
+
+    def solve():
+        return local_ba.local_bundle_adjustment(prob, newest, cam)
+
+    stream_ms = statistics.median(_run_times(solve, runs=5, batch=1,
+                                             warmup=1))
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU,
+                        torch.profiler.ProfilerActivity.CUDA]) as prof:
+        solve()
+        torch.cuda.synchronize()
+    device = [e for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_ms = sum(e.time_range.elapsed_us() for e in device) / 1e3
+    n_obs = int(prob.obs_valid.sum())
+    n_kf = int(prob.kf_valid.sum())
+    print(f"[system] BA replay ({n_kf} keyframes, {n_obs} observations): "
+          f"{stream_ms:.2f} ms per solve on the stream, "
+          + (f"{len(device)} device launches, {busy_ms:.3f} ms device busy "
+             "(profiler)" if device else
+             "launches and device busy: not measured (no profiler events)"))
+    return {"stream_ms": stream_ms, "launches": len(device) or None,
+            "busy_ms": busy_ms if device else None}
+
+
+def phase_minting(cfg, gt, left, right, sems, dev) -> None:
+    """Phase 6's minting run: the session on the first ``MINT_FRAMES``
+    frames with the entropy-reduction gate at ``MINT_TH_ENTROPY``, so
+    that triangulation mints points at full width; the host map and the
+    device map must then hold the same points (the id lockstep)."""
+    mint_cfg = dataclasses.replace(cfg, semantic=dataclasses.replace(
+        cfg.semantic, th_entropy_reduction=MINT_TH_ENTROPY))
+    k = MINT_FRAMES
+    system = run_system(mint_cfg, left[:k], right[:k], sems[:k], dev)[0]
+    stats = session_stats(system, gt[:k])
+    m, dm = system.map, system.tracker.dmap
+    n_pts = m.n_points
+    dev_valid = dm.pt_valid[:n_pts].cpu().numpy()
+    pos_err = float(np.abs(dm.pt_pos[:n_pts].cpu().numpy()
+                           - m.pt_pos[:n_pts]).max()) if n_pts else 0.0
+    print(f"[system] minting run ({k} frames, entropy gate "
+          f"{MINT_TH_ENTROPY}): {_stats_text(stats)}; map points host "
+          f"{n_pts}, device {int(dm.n_points)}, position max diff "
+          f"{pos_err:.3g} m")
+    _need(stats["lost"] == 0, f"minting run: {stats['lost']} frames lost")
+    _need(stats["triangulated"] > 0, "minting run: triangulation minted "
+          "no point")
+    _need(int(dm.n_points) == n_pts
+          and np.array_equal(dev_valid, m.pt_valid[:n_pts]),
+          "minting run: host and device maps differ")
+    _need(pos_err <= 1e-6, f"minting run: positions differ by {pos_err}")
+
+
+def phase_system(cfg, gt, left, right, sems, dev, ba_case,
+                 warmup_stats) -> dict:
+    """Phase 6: the session, timed, with the launch counters set to 0
+    just before it and read just after, then its outputs and gates; a
+    third run counts syncs, and the minting run follows."""
+    n = len(left)
+    mapper_k2 = [0]
+    fuse_dispatch = LocalMapper._fuse_dispatch
+
+    def counted_fuse_dispatch(self, *args, **kwargs):
+        before = kernel_match.LAUNCHES
+        try:
+            return fuse_dispatch(self, *args, **kwargs)
+        finally:
+            mapper_k2[0] += kernel_match.LAUNCHES - before
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    LocalMapper._fuse_dispatch = counted_fuse_dispatch
+    kernel_orb.LAUNCHES = 0
+    kernel_match.LAUNCHES = 0
+    try:
+        system, frame_ms, _, _ = run_system(cfg, left, right, sems, dev)
+    finally:
+        LocalMapper._fuse_dispatch = fuse_dispatch
+    launches = {"k1": kernel_orb.LAUNCHES, "k2": kernel_match.LAUNCHES,
+                "k2_mapper": mapper_k2[0]}
+    peak_mb = torch.cuda.max_memory_allocated(dev) / 2**20
+
+    m, mapper = system.map, system.mapper
+    stats = session_stats(system, gt)
+    ate, lost, n_kf = stats["ate"], stats["lost"], stats["keyframes"]
+    live = int(m.pt_valid[: m.n_points].sum())
+    with tempfile.TemporaryDirectory() as tmp:
+        traj = os.path.join(tmp, "CameraTrajectory.txt")
+        counts = os.path.join(tmp, "keyframes_points.txt")
+        system.save_trajectory_kitti(traj)
+        system.shutdown(counts)
+        with open(traj) as f:
+            traj_lines = f.read().splitlines()
+        with open(counts) as f:
+            counts_text = f.read()
+    timer = system.timer
+    print(f"[system] {n} frames: {_stats_text(stats)} (ATE over "
+          f"frame_poses), map points {m.n_points} ({live} live); JAX CPU "
+          "reference, two runs: "
+          + ", ".join(f"{k} {v}" for k, v in REF_SYSTEM.items()))
+    print(f"[system] track_stereo per-frame median "
+          f"{statistics.median(frame_ms):.2f} ms (mean "
+          f"{statistics.mean(frame_ms):.2f}, max {max(frame_ms):.2f}); peak "
+          f"device memory {peak_mb:.1f} MiB; cap binds {mapper.cap_binds}")
+    print("\n".join("[system] " + row for row in timer.summary().splitlines()))
+    print(f"[system] launches: K1 {launches['k1']} (2 x {n} frames), K2 "
+          f"{launches['k2']} ({launches['k2_mapper']} from the mapper's "
+          f"fusion, which counted {mapper.fuse_searches} searches)")
+    ba = ba_cost(ba_case)
+    sync_system, _, syncs, mapper_syncs = run_system(
+        cfg, left, right, sems, dev, count_syncs=True)
+    sync_kf = sync_system.map.n_keyframes
+    print(f"[system] device syncs: {len(syncs) / n:.2f} per frame "
+          f"({len(syncs)} over {n} frames); inside the mapper "
+          f"{mapper_syncs} over {sync_kf} keyframes "
+          f"({mapper_syncs / max(sync_kf, 1):.2f} per keyframe)")
+    print("[system] run to run: warm-up " + _stats_text(warmup_stats)
+          + "; timed " + _stats_text(stats) + "; sync count "
+          + _stats_text(session_stats(sync_system, gt)))
+    for (path, line), c in Counter((os.path.basename(w.filename), w.lineno)
+                                   for w in syncs).most_common():
+        print(f"[system] syncs at {path}:{line}: {c}")
+
+    _need(lost == 0, f"{lost} frames lost")
+    _need(ate <= 0.10, f"ATE {ate:.4f} m > 0.10 m")
+    ref_kf = REF_SYSTEM["keyframes"]
+    _need(min(ref_kf) - 3 <= n_kf <= max(ref_kf) + 3,
+          f"{n_kf} keyframes, expected within 3 of {ref_kf}")
+    _need(mapper.ba_solves >= 1, "no BA solve applied")
+    _need(timer.counts.get("map.triangulate", 0) >= 1,
+          "triangulation never ran")
+    phase_minting(cfg, gt, left, right, sems, dev)
+    _need(launches["k1"] == 2 * n, f"K1 launched {launches['k1']} times")
+    _need(launches["k2_mapper"] == mapper.fuse_searches > 0,
+          f"mapper K2 launches {launches['k2_mapper']} vs fusion searches "
+          f"{mapper.fuse_searches}")
+    _need(len(traj_lines) == n, f"{len(traj_lines)} trajectory lines")
+    _need(all(len(line.split()) == 12 for line in traj_lines),
+          "trajectory line format")
+    _need(counts_text.startswith(f"Final number of keyframes: {n_kf}\n"),
+          f"counts file: {counts_text!r}")
+    return {"launches": launches, "frame_ms": statistics.median(frame_ms),
+            "syncs_per_frame": len(syncs) / n,
+            "mapper_syncs_per_keyframe": mapper_syncs / max(sync_kf, 1),
+            "peak_mb": peak_mb, "ba": ba}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -452,26 +752,36 @@ def main() -> int:
     gt, left, right, sems = make_scene(cfg, N_FRAMES)
     k1 = phase_k1(statics, left[0], dev)
     model = phase_segnet(cfg, left[0], dev)
-    k2 = phase_k2(*capture_k2_cases(cfg, statics, model, left, right, sems,
-                                    dev))
-    launches = phase_slice(cfg, statics, model, gt, left, right, sems, dev)
+    cases, calls = capture_k2_cases(cfg, statics, model, left, right, sems,
+                                    dev)
+    (cases["fusion"], calls["fusion"], ba_case,
+     warmup_stats) = capture_system_cases(cfg, gt, left, right, sems, dev)
+    k2 = phase_k2(cases, calls)
+    slice_launches = phase_slice(cfg, statics, model, gt, left, right, sems,
+                                 dev)
+    system = phase_system(cfg, gt, left, right, sems, dev, ba_case,
+                          warmup_stats)
+    launches = system["launches"]
     print(json.dumps({"kernels": [
         {"name": "orb_describe", "route": "cuda",
          "source": "sivo_tpu_torch/csrc/orb_describe.cu",
          "replaces": "sivo_tpu/ops/pallas_orb.py:218",
          "launches": launches["k1"],
-         "launches_per_frame": launches["k1"] / N_FRAMES, **k1,
+         "launches_per_frame": launches["k1"] / N_FRAMES,
+         "launches_tracker_slice": slice_launches["k1"], **k1,
          "library_ms": None,
          "library_note": NO_LIBRARY + "PyTorch has no oriented BRIEF"},
         {"name": "hamming_top2", "route": "cuda",
          "source": "sivo_tpu_torch/csrc/hamming_top2.cu",
          "replaces": "sivo_tpu/ops/pallas_match.py:166",
          "launches": launches["k2"],
-         "launches_per_frame": launches["k2"] / N_FRAMES, **k2,
+         "launches_per_frame": launches["k2"] / N_FRAMES,
+         "launches_mapper_fusion": launches["k2_mapper"],
+         "launches_tracker_slice": slice_launches["k2"], **k2,
          "library_ms": None,
          "library_note": NO_LIBRARY + "PyTorch has no masked top-2 with "
          "first-index ties"},
-    ]}))
+    ], "system": {k: v for k, v in system.items() if k != "launches"}}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -164,3 +164,34 @@ def observe_points(
         pt_desc_u8=scatter(dmap.pt_desc_u8, idx, distinctive),
         pt_desc_ring=ring,
     )
+
+
+def _ids_or_drop(pt_ids: torch.Tensor, capacity: int) -> torch.Tensor:
+    """Point ids with every -1 entry sent to the dropped row."""
+    return torch.where(pt_ids >= 0, pt_ids,
+                       torch.full_like(pt_ids, capacity)).long()
+
+
+def add_obs_counts(dmap: DeviceMap, pt_ids: torch.Tensor) -> DeviceMap:
+    """Bump observation counts for cross-observations created by
+    triangulation and fusion, so the keyframe policy's
+    TrackedMapPoints(minObs) counter (ref: Tracking.cc:845-851) sees
+    them; -1 entries ignored, repeated ids counted each time."""
+    idx = _ids_or_drop(pt_ids, dmap.capacity)
+    ones = torch.ones_like(idx, dtype=torch.int32)
+    return dmap._replace(
+        pt_obs_count=scatter(dmap.pt_obs_count, idx, ones, accumulate=True))
+
+
+def invalidate_points(dmap: DeviceMap, pt_ids: torch.Tensor) -> DeviceMap:
+    """Kill points by id (culling, fusion); -1 entries ignored."""
+    idx = _ids_or_drop(pt_ids, dmap.capacity)
+    return dmap._replace(pt_valid=scatter(
+        dmap.pt_valid, idx, torch.zeros_like(idx, dtype=torch.bool)))
+
+
+def set_positions(dmap: DeviceMap, pt_ids: torch.Tensor,
+                  positions: torch.Tensor) -> DeviceMap:
+    """Write point positions (BA write-back); -1 entries ignored."""
+    idx = _ids_or_drop(pt_ids, dmap.capacity)
+    return dmap._replace(pt_pos=scatter(dmap.pt_pos, idx, positions))

@@ -1,8 +1,9 @@
 """Device-resident keyframe store (port of ``sivo_tpu/runtime/kf_store.py``).
 
 Keeps each keyframe's keypoint arrays on the device, written once at
-insertion, for the keyframe-rate consumers (mapping and loop closing,
-not yet ported). Updated in place: a slot write touches only that slot.
+insertion, for the keyframe-rate consumers (the local mapper's
+triangulation and fusion gather their neighbours' arrays by slot).
+Updated in place: a slot write touches only that slot.
 """
 
 from __future__ import annotations
@@ -55,3 +56,9 @@ def insert(store: DeviceKFStore, slot: int, **fields: torch.Tensor
     for name, value in fields.items():
         getattr(store, name)[slot] = value
     return store
+
+
+def gather(store: DeviceKFStore, idx: torch.Tensor) -> DeviceKFStore:
+    """(B,) keyframe slots -> per-field (B, N, ...) copies."""
+    idx = idx.long()
+    return DeviceKFStore(*(f[idx] for f in store))

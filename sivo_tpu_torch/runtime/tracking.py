@@ -2,18 +2,22 @@
 ``sivo_tpu/runtime/tracking.py``).
 
 All numerics run on the device in ``track_step``; the host copies the
-72-float summary back once per frame (``.cpu()``), runs the state
-machine and the keyframe decision, and does keyframe bookkeeping at
-keyframe rate. State machine (ref: Tracking.h:89-95):
-NOT_INITIALIZED -> OK <-> LOST.
+72-float summary back once per frame, runs the state machine and the
+keyframe decision, and does keyframe bookkeeping at keyframe rate.
+State machine (ref: Tracking.h:89-95): NOT_INITIALIZED -> OK <-> LOST.
 
-This slice runs without a local mapper: the Tracker completes each
-keyframe's host bookkeeping itself (``finish_kf_host``), as the JAX
-package's Tracker does when ``mapper`` is None.
+``dispatch`` enqueues a frame's tracking step and starts the copy of its
+summary into pinned host memory (``utils/transfer.HostCopy``);
+``retire`` waits for that copy and runs the host policy. ``System``
+keeps up to ``pipeline_depth`` frames in flight between the two. With a
+``mapper`` (set by ``System``) the keyframe decision honours its
+backpressure and the mapper completes each keyframe's host bookkeeping
+at admission; without one the Tracker completes it at insertion.
 """
 
 from __future__ import annotations
 
+import contextlib
 import enum
 from dataclasses import dataclass, field
 from typing import Optional
@@ -22,12 +26,14 @@ import numpy as np
 import torch
 
 from sivo_tpu_torch.config import SystemConfig
+from sivo_tpu_torch.geometry import se3
 from sivo_tpu_torch.geometry.projection import CameraParams, unproject_stereo
 from sivo_tpu_torch.runtime import device_map, kf_store as kfs_mod
 from sivo_tpu_torch.runtime import track_step as ts
 from sivo_tpu_torch.runtime.frame import Frame
 from sivo_tpu_torch.runtime.map_state import KeyFrameData, MapState
 from sivo_tpu_torch.select import info as info_ops
+from sivo_tpu_torch.utils.transfer import HostCopy, to_device
 
 
 class TrackingState(enum.Enum):
@@ -89,6 +95,11 @@ class Ticket:
     result: ts.StepResult
     timestamp: float
     frame_id: int
+    summary_copy: HostCopy
+    # world corrections (BA) applied after this frame was dispatched:
+    # its summary pose is in the old world frame and is re-chained at
+    # retire (Tcw_new = Tcw_old @ correction)
+    correction: Optional[np.ndarray] = None
 
 
 @dataclass
@@ -102,6 +113,9 @@ class Tracker:
     last_kf_id: int = -1
     last_kf_frame_id: int = -1
     trajectory: list = field(default_factory=list)
+    # localization mode: track against the frozen map, never insert
+    # keyframes (ref: System.cc:220-243)
+    only_tracking: bool = False
 
     def __post_init__(self):
         self.device = torch.device(self.device)
@@ -128,6 +142,14 @@ class Tracker:
         self._rot_rate = 0.0
         # where in the SEL_CAP walk the last greedy accept fell, 16 bins
         self.sel_last_accept_hist = [0] * 16
+        self._inflight: list[Ticket] = []  # dispatched, not retired (FIFO)
+        self.kf_created: Optional[int] = None  # set by retire()
+        self.mapper = None  # set by System: keyframe backpressure
+        self.timer = None  # optional StageTimer
+        # keyframe requests shed at full keyframe capacity, counted once
+        # per run of consecutive sheds
+        self.kf_cap_skips = 0
+        self._kf_cap_shedding = False
 
     # -- public API ---------------------------------------------------------
 
@@ -148,7 +170,8 @@ class Tracker:
         return self.last_pose if ok else None
 
     def dispatch(self, frame: Frame, timestamp: float) -> Ticket:
-        """Run the tracking step for this frame on the device."""
+        """Enqueue the tracking step for this frame and start the copy
+        of its summary to the host."""
         fid = self.frame_count
         self.frame_count += 1
         # anchor cadence: every 2nd frame, the frame right after a
@@ -172,14 +195,55 @@ class Tracker:
         )
         self.dmap = result.dmap
         self.carry = result.carry
-        return Ticket(frame=frame, result=result, timestamp=timestamp,
-                      frame_id=fid)
+        tk = Ticket(frame=frame, result=result, timestamp=timestamp,
+                    frame_id=fid,
+                    summary_copy=HostCopy({"summary": result.summary}))
+        self._inflight.append(tk)
+        return tk
+
+    @property
+    def inflight_count(self) -> int:
+        return len(self._inflight)
+
+    def take_inflight(self) -> Optional[Ticket]:
+        """Pop the OLDEST in-flight ticket (FIFO)."""
+        return self._inflight.pop(0) if self._inflight else None
+
+    def apply_world_correction(self, ref_pose_old: np.ndarray,
+                               ref_pose_new: np.ndarray) -> None:
+        """Re-anchor the carry pose after BA moved the map
+        (ref: Tracking.cc:641-646 UpdateLastFrame): carry.pose becomes
+        carry.pose @ Tref_old^-1 @ Tref_new, the camera-to-reference
+        pose the correction preserves (the velocity Tcl is invariant
+        under the right-multiplication). Frames already in flight
+        re-chain their summary pose at retire."""
+        delta = (np.linalg.inv(ref_pose_old.astype(np.float64))
+                 @ ref_pose_new.astype(np.float64))
+        if np.allclose(delta, np.eye(4), atol=1e-9):
+            return
+        if self.carry is not None:
+            delta_f = to_device(delta.astype(np.float32), self.device)
+            self.carry = self.carry._replace(pose=self.carry.pose @ delta_f)
+        self.last_pose = (self.last_pose.astype(np.float64)
+                          @ delta).astype(np.float32)
+        for tk in self._inflight:
+            tk.correction = (delta if tk.correction is None
+                             else tk.correction @ delta)
 
     def retire(self, ticket: Ticket) -> Optional[np.ndarray]:
-        """Consume a ticket's summary (one device->host copy) and run
-        the host policy: state machine, trajectory record, keyframe
-        decision and insertion."""
-        summary = ticket.result.summary.cpu().numpy()
+        """Wait for a ticket's summary copy and run the host policy:
+        state machine, trajectory record, keyframe decision and
+        insertion. Returns the frame's pose, or None if tracking failed."""
+        if ticket in self._inflight:
+            self._inflight.remove(ticket)
+        # frames dispatched after this one mean the device carry has
+        # moved on: a keyframe made from this frame must not rewrite the
+        # carry's point ids (they index another frame's keypoints)
+        stale = len(self._inflight) > 0
+        self.kf_created = None
+        with (self.timer.stage("track.retire.wait") if self.timer is not None
+              else contextlib.nullcontext()):
+            summary = ticket.summary_copy.result()["summary"]
         self.last_summary = summary
         fid, timestamp = ticket.frame_id, ticket.timestamp
 
@@ -199,6 +263,9 @@ class Tracker:
 
         self.state = TrackingState.OK
         pose = summary[ts.S_POSE].reshape(4, 4).astype(np.float32)
+        if ticket.correction is not None:
+            pose = (pose.astype(np.float64)
+                    @ ticket.correction).astype(np.float32)
         dR = pose[:3, :3] @ self.last_pose[:3, :3].T
         self._rot_rate = float(
             np.arccos(np.clip((np.trace(dR) - 1.0) / 2.0, -1.0, 1.0))
@@ -207,13 +274,29 @@ class Tracker:
         self.last_cov = summary[ts.S_COV].reshape(6, 6).astype(np.float32)
 
         want_kf = self._need_new_keyframe(summary, fid)
-        if want_kf and self.map.n_keyframes < self.map.max_keyframes:
+        if want_kf and self.map.n_keyframes >= self.map.max_keyframes:
+            # full keyframe store: shed the insertion and keep tracking
+            # (compaction restores headroom); the request re-fires each
+            # frame, and a run of sheds counts as one event
+            if not self._kf_cap_shedding:
+                self.kf_cap_skips += 1
+            self._kf_cap_shedding = True
+        elif want_kf:
+            self._kf_cap_shedding = False
             self._create_new_keyframe(ticket.frame, ticket.result,
-                                      timestamp, fid)
+                                      timestamp, fid, stale=stale,
+                                      correction=ticket.correction)
+            # reserve the device's mints on the host counter now, in
+            # dispatch order: the host mirror lands only at
+            # finish_kf_host, and a triangulation applied in between
+            # must not mint the same ids (mirror_points' max() makes
+            # this idempotent)
             n_sel = int(summary[ts.S_N_SELECTED])
             self.map.n_points = min(self.map.n_points + n_sel,
                                     self.map.max_points)
-            self.finish_kf_host(self.last_kf_id)
+            self.kf_created = self.last_kf_id
+            if self.mapper is None:
+                self.finish_kf_host(self.last_kf_id)
         self.trajectory.append(FrameRecord(
             pose=pose, rel_pose=self._rel_pose(pose), ref_kf=self.last_kf_id,
             timestamp=timestamp, frame_id=fid,
@@ -246,12 +329,14 @@ class Tracker:
         )
         self._insert_keyframe_device(frame, sel, xw, minus1, timestamp, fid,
                                      pose, cov)
-        self.finish_kf_host(self.last_kf_id)
+        if self.mapper is None:
+            self.finish_kf_host(self.last_kf_id)
         self.state = TrackingState.OK
         self.trajectory.append(FrameRecord(
             pose=pose, rel_pose=np.eye(4, dtype=np.float32),
             ref_kf=self.last_kf_id, timestamp=timestamp, frame_id=fid,
         ))
+        self.kf_created = self.last_kf_id
         return True
 
     # -- keyframe policy ----------------------------------------------------
@@ -266,8 +351,10 @@ class Tracker:
 
     def _need_new_keyframe(self, summary: np.ndarray, fid: int) -> bool:
         """ref: Tracking.cc:825-919 with the SIVO 30/70 close-point rule,
-        plus the JAX package's cadence, young-map and turn clauses. With
-        no mapper the mapper is always idle and its queue empty."""
+        plus the JAX package's cadence, young-map and turn clauses and
+        the mapper's backpressure (no mapper: always idle, queue empty)."""
+        if self.only_tracking:  # ref: Tracking.cc:826-828
+            return False
         cfg = self.cfg.tracking
         n_tracked = summary[ts.S_N_TRACKED]
         n_ref = summary[ts.S_N_REF]
@@ -275,8 +362,13 @@ class Tracker:
                       and summary[ts.S_N_CLOSE_FREE] > cfg.close_nontracked_min)
         max_frames = int(self.cfg.camera.fps)
         th_ref = cfg.th_ref_ratio if self.map.n_keyframes >= 2 else 0.25
+        mapper_idle = self.mapper is None or not self.mapper.busy
+        queue_len = 0 if self.mapper is None else self.mapper.queue_len
         c1a = fid >= self.last_kf_frame_id + max_frames
-        c1b = fid >= self.last_kf_frame_id + cfg.min_frames_between_kf
+        # the reference's c1b needs an idle mapper; the pipelined
+        # mapper's equivalent is an empty admission queue
+        c1b = (fid >= self.last_kf_frame_id + cfg.min_frames_between_kf
+               and queue_len == 0)
         c1c = n_tracked < n_ref * 0.25 or need_close
         c2 = (n_tracked < n_ref * th_ref or need_close) and n_tracked > 15
         c_cadence = c1a and n_tracked > 15
@@ -284,17 +376,34 @@ class Tracker:
                    and fid >= self.last_kf_frame_id + 3 and n_tracked > 15)
         c_turn = (self._rot_rate > 0.03
                   and fid >= self.last_kf_frame_id + 3 and n_tracked > 15)
-        return bool(((c1a or c1b or c1c) and c2) or c_cadence or c_young
-                    or c_turn)
+        decision = bool(((c1a or c1b or c1c) and c2) or c_cadence or c_young
+                        or c_turn)
+        # backpressure (ref: Tracking.cc:901-916): a busy mapper admits
+        # a keyframe only while its queue is short
+        if decision and not mapper_idle:
+            decision = queue_len < 3
+        return decision
 
     def _create_new_keyframe(self, frame: Frame, result: ts.StepResult,
-                             timestamp: float, fid: int) -> None:
+                             timestamp: float, fid: int, stale: bool = False,
+                             correction: Optional[np.ndarray] = None
+                             ) -> None:
         """ref: Tracking.cc:921-1031 CreateNewKeyFrame."""
-        self._insert_keyframe_device(frame, result.sel_mask, result.xw,
+        xw = result.xw
+        if correction is not None:
+            # the frame ran in the pre-correction world frame: with
+            # Tcw_new = Tcw_old @ delta, world points move by delta^-1
+            delta_inv = np.linalg.inv(correction.astype(np.float64))
+            xw = se3.transform(
+                to_device(delta_inv.astype(np.float32), self.device), xw)
+        self._insert_keyframe_device(frame, result.sel_mask, xw,
                                      result.pt_idx, timestamp, fid,
                                      self.last_pose, self.last_cov)
-        # the carry refers to this frame's keypoints: give it the new ids
-        self.carry = self.carry._replace(pt_idx=self._kf_new_pt_idx)
+        if not stale:
+            # the carry still refers to this frame's keypoints: give it
+            # the new ids (in flight, newer frames pick them up through
+            # the local map instead)
+            self.carry = self.carry._replace(pt_idx=self._kf_new_pt_idx)
 
     def _insert_keyframe_device(self, frame: Frame, sel_mask, xw, pt_idx,
                                 timestamp: float, fid: int,
@@ -305,7 +414,7 @@ class Tracker:
         cam_center = -pose[:3, :3].T @ pose[:3, 3]
         self.dmap, new_ids = device_map.add_points(
             self.dmap, sel_mask, xw, frame.desc_u8, frame.sem_class,
-            frame.level, torch.from_numpy(cam_center).to(self.device),
+            frame.level, to_device(cam_center, self.device),
             self.cfg.orb.scale_factor, self.cfg.orb.n_levels,
         )
         combined_idx = torch.where(new_ids >= 0, new_ids, pt_idx)
@@ -319,7 +428,7 @@ class Tracker:
             sem_confidence=frame.sem_confidence,
             sem_entropy=frame.sem_entropy,
         )
-        host = {
+        host = HostCopy({
             "xy": frame.xy, "level": frame.level, "angle": frame.angle,
             "desc_u8": frame.desc_u8, "u_right": frame.u_right,
             "depth": frame.depth, "sem_class": frame.sem_class,
@@ -327,7 +436,7 @@ class Tracker:
             "sem_entropy": frame.sem_entropy, "semantic": frame.semantic,
             "pt_idx": combined_idx, "new_ids": new_ids, "sel": sel_mask,
             "xw": xw,
-        }
+        })
         kf_idx = self.map.add_keyframe(pose, cov, None)
         if kf_idx != kf_slot:
             raise RuntimeError(f"keyframe slot {kf_idx} != {kf_slot}")
@@ -341,13 +450,14 @@ class Tracker:
                                               self._local_ids_dev)
 
     def finish_kf_host(self, kf_idx: int) -> None:
-        """Complete a keyframe's host bookkeeping: keypoint snapshot,
-        point mirroring, observations, spanning tree, local map."""
+        """Complete a keyframe's host bookkeeping from its copy:
+        keypoint snapshot, point mirroring, observations, spanning tree,
+        local map."""
         pending = self._kf_host_pending.pop(kf_idx, None)
         if pending is None:
             return
-        dev_arrays, fid, timestamp, pose = pending
-        host = {k: v.cpu().numpy() for k, v in dev_arrays.items()}
+        host_copy, fid, timestamp, pose = pending
+        host = host_copy.result()
         data = KeyFrameData(
             frame_id=fid, timestamp=timestamp, xy=host["xy"],
             level=host["level"], angle=host["angle"],
@@ -386,4 +496,11 @@ class Tracker:
             self.local_cap_binds += 1
         pad = np.full(ts.LOCAL_CAND, -1, np.int32)
         pad[: len(ids)] = ids
-        self._local_ids_dev = torch.from_numpy(pad).to(self.device)
+        self._local_ids_dev = to_device(pad, self.device)
+
+    def refresh_local_map_latest(self) -> None:
+        """Refresh around the newest keyframe whose host bookkeeping is
+        complete (the mapper calls this after creating points)."""
+        k = self.last_kf_id
+        if k >= 0 and self.map.kf_data[k] is not None:
+            self.refresh_local_map(k)

@@ -1,16 +1,27 @@
 """The port's copies of the JAX package's numpy-only modules stay equal
 to their originals: ``sivo_tpu_torch/config.py`` (the default
-``SystemConfig``, field for field) and ``sivo_tpu_torch/io/synthetic.py``
-(a tiny world rendered by both, array for array, exactly)."""
+``SystemConfig``, field for field), ``sivo_tpu_torch/io/synthetic.py``
+(a tiny world rendered by both, array for array, exactly),
+``sivo_tpu_torch/io/trajectory.py`` (every function's source, and the
+files both write) and ``StageTimer`` of
+``sivo_tpu_torch/utils/profiling.py`` (its class source; its
+``scalar_sync`` takes a tensor and reads the same element)."""
 
 import dataclasses
+import inspect
 
 import numpy as np
+import pytest
+import torch
 
 from sivo_tpu import config as j_config
 from sivo_tpu.io import synthetic as j_synth
+from sivo_tpu.io import trajectory as j_traj
+from sivo_tpu.utils import profiling as j_prof
 from sivo_tpu_torch import config as t_config
 from sivo_tpu_torch.io import synthetic as t_synth
+from sivo_tpu_torch.io import trajectory as t_traj
+from sivo_tpu_torch.utils import profiling as t_prof
 
 CAM_FIELDS = dict(fx=90.0, fy=90.0, cx=64.0, cy=40.0, width=128,
                   height=80, bf=90.0 * 0.54, fps=10.0)
@@ -54,3 +65,55 @@ def test_ate_rmse_equal():
     est = gt.copy()
     est[:, :3, 3] += rng.normal(0, 0.05, (6, 3))
     assert t_synth.ate_rmse(est, gt) == j_synth.ate_rmse(est, gt)
+
+
+TRAJECTORY_FUNCTIONS = ("_fmt", "kitti_line", "chained_frame_poses",
+                        "save_trajectory_kitti", "save_keyframes_points")
+
+
+def _public_functions(module):
+    return sorted(name for name, obj in vars(module).items()
+                  if inspect.isfunction(obj)
+                  and obj.__module__ == module.__name__)
+
+
+def test_trajectory_copy_has_the_same_functions():
+    assert (_public_functions(t_traj) == _public_functions(j_traj)
+            == sorted(TRAJECTORY_FUNCTIONS))
+
+
+@pytest.mark.parametrize("name", TRAJECTORY_FUNCTIONS)
+def test_trajectory_function_source_equal(name):
+    assert (inspect.getsource(getattr(t_traj, name))
+            == inspect.getsource(getattr(j_traj, name)))
+
+
+def test_trajectory_files_equal(tmp_path):
+    rng = np.random.default_rng(1)
+    gt = j_synth.forward_trajectory(n_frames=5, speed=0.5)
+    rel = [p @ np.linalg.inv(gt[0]) for p in gt]
+    kf = gt[[0, 2]].copy()
+    kf[1, :3, 3] += rng.normal(0, 0.1, 3)
+    refs = [0, 0, 1, 1, 1]
+    for mod, name in ((t_traj, "t"), (j_traj, "j")):
+        poses = mod.chained_frame_poses(rel, refs, kf)
+        mod.save_trajectory_kitti(str(tmp_path / f"{name}.txt"), poses)
+        mod.save_keyframes_points(str(tmp_path / f"{name}_n.txt"), 2, 77)
+    for suffix in (".txt", "_n.txt"):
+        assert ((tmp_path / f"t{suffix}").read_bytes()
+                == (tmp_path / f"j{suffix}").read_bytes())
+
+
+def test_stage_timer_source_equal():
+    assert (inspect.getsource(t_prof.StageTimer)
+            == inspect.getsource(j_prof.StageTimer))
+    timer = t_prof.StageTimer()
+    with timer.stage("track"):
+        pass
+    assert timer.counts["track"] == 1
+    assert timer.report_reference_style().startswith("median tracking time")
+
+
+def test_scalar_sync_reads_the_first_element():
+    x = torch.arange(6, dtype=torch.float32).reshape(2, 3) + 1.5
+    assert t_prof.scalar_sync(x) == j_prof.scalar_sync(np.asarray(x)) == 1.5

@@ -11,14 +11,24 @@ cluster split (and not of 4, which takes the attributes element by
 element), ties whose columns fall in different CTAs of a cluster, no
 columns, one row, warps with no valid row beside warps with one; K1
 keypoints not a multiple of a block's 16, keypoints at and past the
-clamp edges, a flat patch.
+clamp edges, a flat patch. K2 is also held at the mapper's fusion
+parameters (th 3, nn_ratio 1.0, accept at TH_LOW) through
+``matching.search_by_projection_points``, and the SLAM session
+(``System`` with the local mapper) runs on the card against the same
+run on the CPU.
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
 import torch
 
-from sivo_tpu_torch.ops import kernel_match, kernel_orb, orb
+from sivo_tpu_torch import config as t_config
+from sivo_tpu_torch.io import synthetic
+from sivo_tpu_torch.ops import kernel_match, kernel_orb, matching, orb
+from sivo_tpu_torch.runtime import frame as t_frame
+from sivo_tpu_torch.runtime.system import System
 
 pytestmark = pytest.mark.cuda
 
@@ -184,3 +194,92 @@ def test_wrappers_reject_bad_inputs(cuda):
     with pytest.raises(ValueError):
         kernel_orb.orb_describe_cuda(raw.float(), raw.float(), lvl.long(),
                                      xy)
+
+
+def test_k2_fusion_search_equals_plain(cuda):
+    """The mapper's fusion search (``mapping._fuse_search``): 2048
+    candidate points projected into 2048 keypoints, th 3.0, nn_ratio
+    1.0, TH_LOW acceptance; the card's result equals the CPU's."""
+    rng = np.random.default_rng(7)
+    n, m = 2048, 2048
+    cur_xy = np.stack([rng.uniform(0, 1024, m), rng.uniform(0, 352, m)],
+                      1).astype(np.float32)
+    cur_desc = rng.integers(0, 256, (m, 32)).astype(np.uint8)
+    pick = rng.integers(0, m, n)
+    pt_desc = cur_desc[pick].copy()
+    flip = rng.uniform(0, 1, (n, 32)) < 0.05  # near duplicates
+    pt_desc[flip] ^= np.uint8(1)
+    uvr = np.concatenate([cur_xy[pick] + rng.normal(0, 2, (n, 2)),
+                          rng.uniform(0, 1024, (n, 1))], 1).astype(np.float32)
+    args = dict(
+        pt_desc=pt_desc, pt_visible=rng.uniform(0, 1, n) < 0.6,
+        pt_uvr=uvr, pt_level=rng.integers(0, 8, n).astype(np.int32),
+        pt_view_cos=rng.uniform(0.9, 1.0, n).astype(np.float32),
+        cur_xy=cur_xy, cur_level=rng.integers(0, 8, m).astype(np.int32),
+        cur_desc=cur_desc,
+        cur_ur=np.where(rng.uniform(0, 1, m) < 0.5, -1.0,
+                        rng.uniform(0, 1024, m)).astype(np.float32),
+        cur_valid=rng.uniform(0, 1, m) < 0.9,
+        scales=(1.2 ** np.arange(8)).astype(np.float32))
+
+    def search(dev):
+        t = {k: torch.from_numpy(v).to(dev) for k, v in args.items()}
+        return matching.search_by_projection_points(
+            **t, th=3.0, nn_ratio=1.0, accept_th=matching.TH_LOW)
+
+    before = kernel_match.LAUNCHES
+    on_card = search(cuda)
+    assert kernel_match.LAUNCHES == before + 1
+    on_cpu = search(torch.device("cpu"))
+    for a, b in zip(on_card, on_cpu):
+        assert torch.equal(a.cpu(), b)
+    assert int(on_cpu.n_matches) > 100
+
+
+def _vo_cfg():
+    cfg = t_config.SystemConfig()
+    cam = t_config.CameraConfig(fx=180.0, fy=180.0, cx=160.0, cy=96.0,
+                                width=320, height=192, bf=180.0 * 0.54,
+                                fps=10.0)
+    return dataclasses.replace(
+        cfg, camera=cam,
+        orb=dataclasses.replace(cfg.orb, n_features=600, max_keypoints=1024),
+        tracking=dataclasses.replace(cfg.tracking, min_init_keypoints=150),
+        semantic=dataclasses.replace(cfg.semantic, th_entropy_reduction=0.02),
+    )
+
+
+def test_system_on_card_matches_cpu(cuda):
+    """tests/test_torch_system.py's 10-frame VO world: the port's
+    frontend on the CPU makes the frames once; the session runs on the
+    card and on the CPU, the mapper drained after every frame. Lost and
+    keyframe counts equal, poses within 1e-3 m."""
+    cfg = _vo_cfg()
+    world = synthetic.make_world(cfg.camera, seed=0)
+    gt = synthetic.forward_trajectory(n_frames=10, speed=0.4)
+    left, right, _ = synthetic.render_sequence(world, gt)
+    cls, conf, ent = synthetic.constant_semantics(cfg.camera.height,
+                                                  cfg.camera.width)
+    statics = t_frame.make_statics(cfg)
+    cpu = torch.device("cpu")
+    frames = [t_frame.build_frame_nosegnet(statics, left[i], right[i], cls,
+                                           conf, ent, device=cpu)
+              for i in range(len(gt))]
+    runs = {}
+    for dev in (cuda, cpu):
+        system = System(cfg=cfg, device=dev, max_keyframes=64,
+                        max_points=20000)
+        for i, f in enumerate(frames):
+            system.track_frame(t_frame.Frame(*(x.to(dev) for x in f)),
+                               i * 0.1)
+            system.mapper.drain(system.tracker)
+        runs[dev.type] = system
+    card, host = runs["cuda"], runs["cpu"]
+    assert card.n_lost() == host.n_lost() == 0
+    assert card.map.n_keyframes == host.map.n_keyframes
+    assert card.mapper.ba_solves >= 1
+    assert card.mapper.points_triangulated > 0
+    assert card.mapper.fuse_searches >= 2
+    np.testing.assert_allclose(card.frame_poses()[:, :3, 3],
+                               host.frame_poses()[:, :3, 3], rtol=0,
+                               atol=1e-3)

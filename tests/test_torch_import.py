@@ -38,7 +38,14 @@ def test_every_module_is_found():
     mods = _port_modules()
     for name in ("sivo_tpu_torch.config", "sivo_tpu_torch.io.synthetic",
                  "sivo_tpu_torch.runtime.tracking",
-                 "sivo_tpu_torch.ops.kernel_match"):
+                 "sivo_tpu_torch.ops.kernel_match",
+                 "sivo_tpu_torch.runtime.system",
+                 "sivo_tpu_torch.runtime.mapping",
+                 "sivo_tpu_torch.runtime.compact",
+                 "sivo_tpu_torch.optim.local_ba",
+                 "sivo_tpu_torch.ops.triangulation",
+                 "sivo_tpu_torch.io.trajectory",
+                 "sivo_tpu_torch.utils.profiling"):
         assert name in mods
     assert len(_port_sources()) > len(mods)
 
