@@ -45,6 +45,25 @@ each raising on failure:
    run keeps a copy of K2's inputs at the last fusion search (phase 4's
    fusion case) and of the last local BA problem, which is replayed once
    under the profiler for its device time and launches per solve.
+7. the loop session: the same ``System``, with the repository's offline
+   vocabulary (``sivo_tpu/place/data/orbvoc_synth.npz``, read as data)
+   given through ``attach_vocabulary``, on all 190 frames of the bench
+   loop world, then ``flush``, ``frame_poses``, ``save_trajectory_kitti``
+   and ``shutdown``. Against the JAX package's CPU ``System`` with the
+   same vocabulary on the same frames (``tools/loop190_jax_reference.py``,
+   two runs, ``REF_LOOP``): at least one loop closed, the global BA
+   applied after it, lost frames no more than the JAX runs', keyframes
+   within 5 of theirs, ATE over ``frame_poses()`` <= 0.10 m and no worse
+   than twice theirs, a 190-line trajectory; the loop closer's and
+   relocalization's K2 launches equal to the searches they counted. Then
+   a kidnap on the same ``System``: the believed pose teleported 4 m and
+   frame-to-frame continuity severed, an early frame replayed twice; the
+   second call must relocalize within 0.5 m of ground truth. The run
+   keeps a copy of K2's inputs at the last guided ``search_by_sim3`` call
+   (phase 4's ``sim3`` case, checked and timed after the run), and counts
+   device syncs over all 190 frames.
+
+Phases 2-6 run on the first 40 of the 190 rendered frames.
 
 Kernel times: ``BATCH`` back-to-back calls captured in a CUDA graph,
 its replay timed between two CUDA events and divided by ``BATCH``; the
@@ -83,14 +102,19 @@ from sivo_tpu_torch.models import segnet  # noqa: E402
 from sivo_tpu_torch.ops import (  # noqa: E402
     image, kernel_match, kernel_orb, matching, orb)
 from sivo_tpu_torch.optim import local_ba  # noqa: E402
+from sivo_tpu_torch.place import vocabulary as voc_mod  # noqa: E402
 from sivo_tpu_torch.runtime import frame as frame_mod  # noqa: E402
 from sivo_tpu_torch.runtime.map_state import MapState  # noqa: E402
 from sivo_tpu_torch.runtime.mapping import LocalMapper  # noqa: E402
 from sivo_tpu_torch.runtime.system import System  # noqa: E402
 from sivo_tpu_torch.runtime.tracking import Tracker  # noqa: E402
 from sivo_tpu_torch.utils import kernels  # noqa: E402
+from sivo_tpu_torch.utils.transfer import to_device  # noqa: E402
 
 N_FRAMES = 40
+N_LOOP_FRAMES = 190  # the bench loop world's full lap (phase 7)
+VOCABULARY = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                          "sivo_tpu", "place", "data", "orbvoc_synth.npz")
 RUNS, BATCH = 30, 50  # kernel timing: median over RUNS of BATCH calls
 PLAIN_RUNS, PLAIN_BATCH = 10, 5
 HBM_BYTES_PER_S = 3.35e12
@@ -201,7 +225,7 @@ def make_scene(cfg: SystemConfig, n_frames: int):
     t0 = time.perf_counter()
     world = synthetic.make_loop_world(cfg.camera, seed=0, outer=16.0,
                                       inner=6.0)
-    gt = synthetic.square_loop_trajectory(n_frames=190, half=9.5,
+    gt = synthetic.square_loop_trajectory(n_frames=N_LOOP_FRAMES, half=9.5,
                                           corner_r=3.5, jitter=0.03)
     gt = gt[:n_frames]
     left, right, cls_maps = synthetic.render_sequence(world, gt, ss=2)
@@ -426,18 +450,18 @@ def phase_k2(cases: dict, calls_per_frame: dict) -> dict:
 
 
 def phase_slice(cfg, statics, model, gt, left, right, sems, dev) -> dict:
-    """Phase 5: the slice, timed, with the launch counters read around
-    it, then checked against the JAX package's CPU run. Its warm-up is
+    """Phase 5: the slice, timed with torch's sync debug mode on (a
+    warning per sync costs the host microseconds against a frame's
+    hundreds of milliseconds) and the launch counters read around it,
+    then checked against the JAX package's CPU run. Its warm-up is
     ``capture_k2_cases``."""
     kernel_orb.LAUNCHES = 0
     kernel_match.LAUNCHES = 0
     torch.cuda.reset_peak_memory_stats(dev)
-    tracker, est, t_front, t_track, _ = run_slice(
-        cfg, statics, model, left, right, sems, dev)
+    tracker, est, t_front, t_track, syncs = run_slice(
+        cfg, statics, model, left, right, sems, dev, count_syncs=True)
     launches = {"k1": kernel_orb.LAUNCHES, "k2": kernel_match.LAUNCHES}
     peak_mb = torch.cuda.max_memory_allocated(dev) / 2**20
-    syncs = run_slice(cfg, statics, model, left, right, sems, dev,
-                      count_syncs=True)[4]
 
     n = len(left)
     lost = sum(p is None for p in est)
@@ -495,14 +519,19 @@ def _stats_text(s: dict) -> str:
             f"{s['triangulated']}")
 
 
-def run_system(cfg, left, right, sems, dev, count_syncs: bool = False):
+def run_system(cfg, left, right, sems, dev, count_syncs: bool = False,
+               vocabulary=None):
     """The port's SLAM session: ``System.track_stereo`` on each frame
-    (host clock between device syncs), then ``flush``. With
-    ``count_syncs`` torch's sync debug mode is on and the syncs raised
-    inside the mapper's ``advance`` are counted apart. Returns (system,
-    per-frame ms, sync warnings, syncs inside the mapper)."""
+    (host clock between device syncs), then ``flush``; with a
+    ``vocabulary``, attached after construction (loop closing and
+    relocalization). With ``count_syncs`` torch's sync debug mode is on
+    and the syncs raised inside the mapper's ``advance`` are counted
+    apart. Returns (system, per-frame ms, sync warnings, syncs inside the
+    mapper)."""
     system = System(cfg=cfg, device=dev, max_keyframes=256,
                     max_points=32768)
+    if vocabulary is not None:
+        system.attach_vocabulary(vocabulary)
     frame_ms, in_mapper, depth = [], [0], [0]
     advance = LocalMapper.advance
 
@@ -648,9 +677,9 @@ def phase_minting(cfg, gt, left, right, sems, dev) -> None:
 
 def phase_system(cfg, gt, left, right, sems, dev, ba_case,
                  warmup_stats) -> dict:
-    """Phase 6: the session, timed, with the launch counters set to 0
-    just before it and read just after, then its outputs and gates; a
-    third run counts syncs, and the minting run follows."""
+    """Phase 6: the session, timed with torch's sync debug mode on and
+    the launch counters set to 0 just before it and read just after,
+    then its outputs and gates; the minting run follows."""
     n = len(left)
     mapper_k2 = [0]
     fuse_dispatch = LocalMapper._fuse_dispatch
@@ -667,7 +696,8 @@ def phase_system(cfg, gt, left, right, sems, dev, ba_case,
     kernel_orb.LAUNCHES = 0
     kernel_match.LAUNCHES = 0
     try:
-        system, frame_ms, _, _ = run_system(cfg, left, right, sems, dev)
+        system, frame_ms, syncs, mapper_syncs = run_system(
+            cfg, left, right, sems, dev, count_syncs=True)
     finally:
         LocalMapper._fuse_dispatch = fuse_dispatch
     launches = {"k1": kernel_orb.LAUNCHES, "k2": kernel_match.LAUNCHES,
@@ -701,16 +731,12 @@ def phase_system(cfg, gt, left, right, sems, dev, ba_case,
           f"{launches['k2']} ({launches['k2_mapper']} from the mapper's "
           f"fusion, which counted {mapper.fuse_searches} searches)")
     ba = ba_cost(ba_case)
-    sync_system, _, syncs, mapper_syncs = run_system(
-        cfg, left, right, sems, dev, count_syncs=True)
-    sync_kf = sync_system.map.n_keyframes
     print(f"[system] device syncs: {len(syncs) / n:.2f} per frame "
           f"({len(syncs)} over {n} frames); inside the mapper "
-          f"{mapper_syncs} over {sync_kf} keyframes "
-          f"({mapper_syncs / max(sync_kf, 1):.2f} per keyframe)")
+          f"{mapper_syncs} over {n_kf} keyframes "
+          f"({mapper_syncs / max(n_kf, 1):.2f} per keyframe)")
     print("[system] run to run: warm-up " + _stats_text(warmup_stats)
-          + "; timed " + _stats_text(stats) + "; sync count "
-          + _stats_text(session_stats(sync_system, gt)))
+          + "; timed " + _stats_text(stats))
     for (path, line), c in Counter((os.path.basename(w.filename), w.lineno)
                                    for w in syncs).most_common():
         print(f"[system] syncs at {path}:{line}: {c}")
@@ -735,8 +761,200 @@ def phase_system(cfg, gt, left, right, sems, dev, ba_case,
           f"counts file: {counts_text!r}")
     return {"launches": launches, "frame_ms": statistics.median(frame_ms),
             "syncs_per_frame": len(syncs) / n,
-            "mapper_syncs_per_keyframe": mapper_syncs / max(sync_kf, 1),
+            "mapper_syncs_per_keyframe": mapper_syncs / max(n_kf, 1),
             "peak_mb": peak_mb, "ba": ba}
+
+
+# the JAX package's CPU System with the offline vocabulary on the 190
+# frames (tools/loop190_jax_reference.py), two runs
+REF_LOOP = {"loops": (1, 1), "lost": (0, 1), "ate": (0.0361, 0.0530),
+            "keyframes": (49, 46)}
+KIDNAP_FRAME = 2
+
+
+def _center(T: np.ndarray) -> np.ndarray:
+    T = T.astype(np.float64)
+    return -T[:3, :3].T @ T[:3, 3]
+
+
+def run_loop_session(cfg, left, right, sems, dev, voc):
+    """Phase 7's run, with the launch counters set to 0 just before it
+    and read just after, and torch's sync debug mode on (a warning per
+    sync costs the host microseconds against a frame's hundreds of
+    milliseconds); keeps a copy of K2's inputs at the last call of the
+    loop closer's guided ``search_by_sim3``. Returns (system, per-frame
+    ms, launches, sync warnings, K2 sim3 case, sim3 searches per
+    frame)."""
+    top2 = kernel_match.masked_hamming_top2
+    by_sim3 = matching.search_by_sim3
+    kept, in_sim3 = {}, [False]
+
+    def record(a_u8, b_u8, row, col, use_ur=True):
+        if in_sim3[0]:
+            kept["k2"] = (*(t.clone() for t in (a_u8, b_u8, row, col)),
+                          use_ur)
+            kept["calls"] = kept.get("calls", 0) + 1
+        return top2(a_u8, b_u8, row, col, use_ur)
+
+    def tagged_by_sim3(*args, **kwargs):
+        in_sim3[0] = True
+        try:
+            return by_sim3(*args, **kwargs)
+        finally:
+            in_sim3[0] = False
+
+    kernel_match.masked_hamming_top2 = record
+    matching.search_by_sim3 = tagged_by_sim3
+    kernel_orb.LAUNCHES = 0
+    kernel_match.LAUNCHES = 0
+    try:
+        system, frame_ms, syncs, _ = run_system(
+            cfg, left, right, sems, dev, count_syncs=True, vocabulary=voc)
+    finally:
+        kernel_match.masked_hamming_top2 = top2
+        matching.search_by_sim3 = by_sim3
+    launches = {"k1": kernel_orb.LAUNCHES, "k2": kernel_match.LAUNCHES}
+    _need("k2" in kept, "phase 7 ran no guided search_by_sim3")
+    return (system, frame_ms, launches, syncs, kept["k2"],
+            kept["calls"] / len(left))
+
+
+def kidnap(system, gt, left, right, sems) -> dict:
+    """Teleport the believed pose 4 m along z and sever frame-to-frame
+    continuity (tests/test_system_modes.py's kidnap), then replay frame
+    ``KIDNAP_FRAME`` twice: the first call is lost, the second must
+    relocalize through the keyframe database."""
+    tr, dev = system.tracker, system.device
+    bogus = tr.last_pose.copy()
+    bogus[2, 3] += 4.0
+    tr.carry = tr.carry._replace(
+        pose=to_device(bogus, dev),
+        has_velocity=torch.zeros((), dtype=torch.bool, device=dev),
+        pt_idx=torch.full_like(tr.carry.pt_idx, -1))
+    tr.last_pose = bogus
+    tr._ref_pt_idx = torch.full_like(tr._ref_pt_idx, -1)
+    tr._local_ids_dev = torch.full_like(tr._local_ids_dev, -1)
+    k = KIDNAP_FRAME
+    cls, conf, ent = sems[k]
+    before = system.reloc_successes
+    t = N_LOOP_FRAMES * 0.1
+    p1 = system.track_stereo(left[k], right[k], t,
+                             sem_override=(cls, conf, ent, False))
+    lost = system.state.name
+    p2 = system.track_stereo(left[k], right[k], t + 0.1,
+                             sem_override=(cls, conf, ent, False))
+    # the session's world is the first camera's frame
+    want = _center(gt[k] @ np.linalg.inv(gt[0]))
+    err = (float(np.linalg.norm(_center(p2) - want)) if p2 is not None
+           else float("inf"))
+    print(f"[loop] kidnap: frame {k} replayed twice: first call "
+          f"{'lost' if p1 is None else 'tracked'} ({lost}), second "
+          f"{'relocalized' if p2 is not None else 'lost'}, "
+          f"{err:.4f} m from ground truth; relocalizations "
+          f"{system.reloc_successes} of {system.reloc_attempts} attempts, "
+          f"candidates {system.reloc_candidates[-1:]}")
+    _need(p1 is None and lost == "LOST", "kidnap: first call not lost")
+    _need(p2 is not None and err <= 0.5, f"kidnap: relocalization off "
+          f"by {err:.4f} m")
+    _need(system.reloc_successes > before, "kidnap: no relocalization")
+    return {"error_m": err}
+
+
+def phase_loop(cfg, gt, left, right, sems, dev) -> dict:
+    """Phase 7: the loop session on all 190 frames, its gates against the
+    JAX package's CPU runs, the kidnap check and the K2 sim3 case's
+    inputs; the run counts its syncs."""
+    voc = voc_mod.load_npz(VOCABULARY)
+    n = len(left)
+    torch.cuda.reset_peak_memory_stats(dev)
+    (system, frame_ms, launches, syncs, sim3_case,
+     sim3_calls) = run_loop_session(cfg, left, right, sems, dev, voc)
+    peak_mb = torch.cuda.max_memory_allocated(dev) / 2**20
+    lc, m = system.loop_closer, system.map
+    raw = np.stack([r.pose for r in system.tracker.trajectory])
+    ate_before = synthetic.ate_rmse(raw, gt)
+    stats = session_stats(system, gt)
+    with tempfile.TemporaryDirectory() as tmp:
+        traj = os.path.join(tmp, "CameraTrajectory.txt")
+        system.save_trajectory_kitti(traj)
+        system.shutdown(os.path.join(tmp, "keyframes_points.txt"))
+        with open(traj) as f:
+            traj_lines = f.read().splitlines()
+    launches.update(loop_closer=lc.k2_launches,
+                    loop_closer_searches=lc.k2_searches,
+                    relocalization=system.reloc_k2_launches,
+                    relocalization_searches=system.reloc_k2_searches)
+    events = [{k: e[k] for k in ("kf", "cand", "correction_m")}
+              for e in lc.loop_events]
+    live = int(m.pt_valid[: m.n_points].sum())
+    print(f"[loop] {n} frames: loops closed {lc.loops_closed}, events "
+          f"{json.dumps(events)}; GBA dispatched {lc.gba_dispatched}, "
+          f"applied {lc.gba_applied}")
+    print(f"[loop] ATE before correction {ate_before:.4f} m (poses at "
+          f"track time), after {stats['ate']:.4f} m (frame_poses); lost "
+          f"{stats['lost']}, keyframes {stats['keyframes']}, map points "
+          f"{m.n_points} ({live} live), relocalizations "
+          f"{system.reloc_successes} of {system.reloc_attempts} attempts; "
+          "JAX CPU reference, two runs: "
+          + ", ".join(f"{k} {v}" for k, v in REF_LOOP.items()))
+    print(f"[loop] track_stereo per-frame median "
+          f"{statistics.median(frame_ms):.2f} ms (mean "
+          f"{statistics.mean(frame_ms):.2f}, max {max(frame_ms):.2f}); peak "
+          f"device memory {peak_mb:.1f} MiB; loop closer cap binds "
+          f"{lc.cap_binds}")
+    for row in system.timer.summary().splitlines():
+        if "lc." in row or "loop_closing" in row or "stage" in row:
+            print(f"[loop] {row}")
+    print(f"[loop] launches: K1 {launches['k1']} (2 x {n} frames), K2 "
+          f"{launches['k2']}: loop closer {launches['loop_closer']} (it "
+          f"counted {launches['loop_closer_searches']} searches), "
+          f"relocalization {launches['relocalization']} (counted "
+          f"{launches['relocalization_searches']})")
+    _need(lc.loops_closed >= max(1, min(REF_LOOP["loops"])),
+          f"{lc.loops_closed} loops closed")
+    _need(lc.gba_applied >= 1, "no global BA applied after the closure")
+    _need(stats["lost"] <= max(REF_LOOP["lost"]),
+          f"{stats['lost']} frames lost")
+    ref_kf = REF_LOOP["keyframes"]
+    _need(min(ref_kf) - 5 <= stats["keyframes"] <= max(ref_kf) + 5,
+          f"{stats['keyframes']} keyframes, expected within 5 of {ref_kf}")
+    _need(stats["ate"] <= min(0.10, 2 * max(REF_LOOP["ate"])),
+          f"ATE {stats['ate']:.4f} m")
+    _need(len(traj_lines) == n, f"{len(traj_lines)} trajectory lines")
+    _need(launches["k1"] == 2 * n, f"K1 launched {launches['k1']} times")
+    _need(launches["loop_closer"] == lc.k2_searches > 0,
+          f"loop closer K2 launches {launches['loop_closer']} vs searches "
+          f"{lc.k2_searches}")
+    _need(launches["relocalization"] == system.reloc_k2_searches,
+          f"relocalization K2 launches {launches['relocalization']} vs "
+          f"searches {system.reloc_k2_searches}")
+    searches0 = system.reloc_k2_searches
+    launches0 = system.reloc_k2_launches
+    kid = kidnap(system, gt, left, right, sems)
+    launches["relocalization_kidnap"] = system.reloc_k2_launches - launches0
+    print(f"[loop] kidnap launches: K2 {launches['relocalization_kidnap']} "
+          f"(relocalization counted {system.reloc_k2_searches - searches0} "
+          "searches)")
+    _need(launches["relocalization_kidnap"]
+          == system.reloc_k2_searches - searches0 > 0,
+          "kidnap: relocalization K2 launches differ from its searches")
+    in_lc = sum("loopclosing" in w.filename for w in syncs)
+    print(f"[loop] device syncs: {len(syncs) / n:.2f} per frame "
+          f"({len(syncs)} over all {n} frames of the run; {in_lc} raised "
+          "in runtime/loopclosing.py)")
+    for (path, line), c in Counter((os.path.basename(w.filename), w.lineno)
+                                   for w in syncs).most_common(12):
+        print(f"[loop] syncs at {path}:{line}: {c}")
+    return {"launches": launches, "frame_ms": statistics.median(frame_ms),
+            "syncs_per_frame": len(syncs) / n, "peak_mb": peak_mb,
+            "loops_closed": lc.loops_closed, "events": events,
+            "gba_dispatched": lc.gba_dispatched,
+            "gba_applied": lc.gba_applied, "ate_before": ate_before,
+            "ate": stats["ate"], "lost": stats["lost"],
+            "keyframes": stats["keyframes"],
+            "relocalizations": system.reloc_successes,
+            "kidnap_error_m": kid["error_m"],
+            "sim3_case": sim3_case, "sim3_calls_per_frame": sim3_calls}
 
 
 def main() -> int:
@@ -749,7 +967,10 @@ def main() -> int:
     phase_build()
     cfg = SystemConfig()
     statics = frame_mod.make_statics(cfg)
-    gt, left, right, sems = make_scene(cfg, N_FRAMES)
+    gt_all, left_all, right_all, sems_all = make_scene(cfg, N_LOOP_FRAMES)
+    gt, left, right = gt_all[:N_FRAMES], left_all[:N_FRAMES], right_all[
+        :N_FRAMES]
+    sems = sems_all[:N_FRAMES]
     k1 = phase_k1(statics, left[0], dev)
     model = phase_segnet(cfg, left[0], dev)
     cases, calls = capture_k2_cases(cfg, statics, model, left, right, sems,
@@ -761,13 +982,19 @@ def main() -> int:
                                  dev)
     system = phase_system(cfg, gt, left, right, sems, dev, ba_case,
                           warmup_stats)
-    launches = system["launches"]
+    loop = phase_loop(cfg, gt_all, left_all, right_all, sems_all, dev)
+    k2_sim3 = phase_k2({"sim3": loop.pop("sim3_case")},
+                       {"sim3": loop.pop("sim3_calls_per_frame")})
+    k2["cases"]["sim3"] = k2_sim3["cases"]["sim3"]
+    k2["max_abs_err"] = max(k2["max_abs_err"], k2_sim3["max_abs_err"])
+    launches = loop["launches"]
     print(json.dumps({"kernels": [
         {"name": "orb_describe", "route": "cuda",
          "source": "sivo_tpu_torch/csrc/orb_describe.cu",
          "replaces": "sivo_tpu/ops/pallas_orb.py:218",
          "launches": launches["k1"],
-         "launches_per_frame": launches["k1"] / N_FRAMES,
+         "launches_per_frame": launches["k1"] / N_LOOP_FRAMES,
+         "launches_session_no_loop": system["launches"]["k1"],
          "launches_tracker_slice": slice_launches["k1"], **k1,
          "library_ms": None,
          "library_note": NO_LIBRARY + "PyTorch has no oriented BRIEF"},
@@ -775,13 +1002,18 @@ def main() -> int:
          "source": "sivo_tpu_torch/csrc/hamming_top2.cu",
          "replaces": "sivo_tpu/ops/pallas_match.py:166",
          "launches": launches["k2"],
-         "launches_per_frame": launches["k2"] / N_FRAMES,
-         "launches_mapper_fusion": launches["k2_mapper"],
+         "launches_per_frame": launches["k2"] / N_LOOP_FRAMES,
+         "launches_loop_closer": launches["loop_closer"],
+         "launches_relocalization": launches["relocalization"],
+         "launches_relocalization_kidnap": launches["relocalization_kidnap"],
+         "launches_session_no_loop": system["launches"]["k2"],
+         "launches_mapper_fusion": system["launches"]["k2_mapper"],
          "launches_tracker_slice": slice_launches["k2"], **k2,
          "library_ms": None,
          "library_note": NO_LIBRARY + "PyTorch has no masked top-2 with "
          "first-index ties"},
-    ], "system": {k: v for k, v in system.items() if k != "launches"}}))
+    ], "system": {k: v for k, v in system.items() if k != "launches"},
+        "loop": {k: v for k, v in loop.items() if k != "launches"}}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -84,7 +84,7 @@ def pack_col_attr_t(x, y, ur, level, valid) -> torch.Tensor:
     return torch.stack([c.float() for c in cols] + [z, z, z]).contiguous()
 
 
-def _popcount_u8(x: torch.Tensor) -> torch.Tensor:
+def popcount_u8(x: torch.Tensor) -> torch.Tensor:
     """Bit count of each uint8 element (SWAR on bytes, no overflow)."""
     x = x - ((x >> 1) & 0x55)
     x = (x & 0x33) + ((x >> 2) & 0x33)
@@ -95,7 +95,7 @@ def hamming_u8(a_u8: torch.Tensor, b_u8: torch.Tensor) -> torch.Tensor:
     """(N, 32) x (M, 32) packed descriptors -> (N, M) int32 Hamming
     distances (XOR + popcount)."""
     xor = a_u8[:, None, :] ^ b_u8[None, :, :]
-    return _popcount_u8(xor).sum(-1, dtype=torch.int32)
+    return popcount_u8(xor).sum(-1, dtype=torch.int32)
 
 
 def pair_mask(row_attr: torch.Tensor, col_attr_t: torch.Tensor,

@@ -179,6 +179,68 @@ def search_by_projection_points(
     return _resolve(best_d, best_j, matched, cur_desc.shape[0])
 
 
+def search_by_sim3(
+    g12_s: torch.Tensor,  # () scale
+    g12_R: torch.Tensor,  # (3, 3)
+    g12_t: torch.Tensor,  # (3,)
+    pc1: torch.Tensor,  # (N1, 3) camera-1-frame positions of kp1 points
+    has1: torch.Tensor,  # (N1,) bool kp1 has a map point
+    xy1: torch.Tensor,
+    level1: torch.Tensor,
+    desc1: torch.Tensor,  # (N1, 32) uint8
+    pc2: torch.Tensor,  # (N2, 3)
+    has2: torch.Tensor,
+    xy2: torch.Tensor,
+    level2: torch.Tensor,
+    desc2: torch.Tensor,
+    scales: torch.Tensor,
+    fx: float,
+    fy: float,
+    cx: float,
+    cy: float,
+    th: float = 7.5,  # ref: LoopClosing.cc:329
+) -> torch.Tensor:
+    """Guided Sim3 correspondence search (ref: ORBmatcher.cc:1055-1276
+    SearchBySim3): each side's points are projected into the other
+    camera through g12 / g12^-1 and matched by K2 in a window of
+    ``th * scale`` at their level +-1 (no right-u test: ``ur`` is a zero
+    column), best distance at most TH_HIGH; only MUTUAL agreements stay.
+    Two K2 searches. Returns (N1,) int32: the kp2 index per kp1, or -1."""
+
+    def directed(pa, has_a, level_a, desc_a, xy_b, level_b, desc_b,
+                 has_b_kp, s, R, t):
+        pb = s * (pa @ R.T) + t  # a-side points in b's camera
+        z = torch.clamp(pb[..., 2], min=1e-9)
+        u = fx * pb[..., 0] / z + cx
+        v = fy * pb[..., 1] / z + cy
+        lvl_a = level_a.float()
+        zeros_a = torch.zeros_like(u)
+        best_d, _, best, _ = _top2_masked(
+            desc_a, desc_b, u, v, zeros_a,
+            th * scales[level_a.long()], lvl_a - 1.0, lvl_a + 1.0,
+            has_a & (pb[..., 2] > 0),
+            xy_b[:, 0], xy_b[:, 1], torch.zeros_like(xy_b[:, 0]),
+            level_b.float(), has_b_kp,
+            use_ur=False,
+        )
+        return torch.where(best_d <= TH_HIGH, best, torch.full_like(best, -1))
+
+    sinv = 1.0 / g12_s
+    Rinv = g12_R.T
+    tinv = -sinv * (Rinv @ g12_t)
+    m21 = directed(  # kp2 -> kp1 via g12 (p1 = g12(p2))
+        pc2, has2, level2, desc2, xy1, level1, desc1, has1,
+        g12_s, g12_R, g12_t)
+    m12 = directed(  # kp1 -> kp2 via g12^-1
+        pc1, has1, level1, desc1, xy2, level2, desc2, has2,
+        sinv, Rinv, tinv)
+    # mutual agreement (ref: ORBmatcher.cc:1243-1270)
+    idx = torch.arange(pc1.shape[0], device=pc1.device, dtype=torch.int32)
+    back = m21[torch.clamp(m12, 0, m21.shape[0] - 1).long()]
+    mutual = (m12 >= 0) & (back == idx)
+    return torch.where(mutual, m12, torch.full_like(m12, -1)).to(torch.int32)
+
+
 def search_brute_force(
     src_desc: torch.Tensor,
     src_valid: torch.Tensor,

@@ -20,8 +20,10 @@ JAX package's HIGHEST-precision einsums. On the card the ``index_add_``
 sums are float atomics: their order, and so the last bits, vary between
 runs.
 
-The JAX package's global BA and its chunked-Schur machinery serve loop
-closing only and are not ported.
+``global_bundle_adjustment`` is the loop closer's dense full-map solve on
+the same machinery (robust kernel off); ``optim/gba_cg.py`` is its
+matrix-free counterpart for larger maps. The JAX package's chunked-Schur
+global BA is not ported.
 """
 
 from __future__ import annotations
@@ -236,3 +238,23 @@ def local_bundle_adjustment(prob: BAProblem, newest: int,
     return BAResult(kf_pose=kp2, pt_pos=pp2, obs_inlier=inlier,
                     newest_cov=Sinv[i0:i0 + 6, i0:i0 + 6],
                     chi2=chi2_total)
+
+
+def global_bundle_adjustment(prob: BAProblem, cam: CameraParams,
+                             iterations: int = 10) -> BAResult:
+    """Full-map BA (ref: Optimizer.cc:39-271 GlobalBundleAdjustment via
+    LoopClosing::RunGlobalBundleAdjustment): ``iterations`` LM steps with
+    the robust kernel off, then the final inlier classification. Its
+    size is bounded by the dense (P, K, 6, 3) cross blocks: the loop
+    closer takes ``gba_cg`` beyond 64 keyframes, 8192 points or 24576
+    observations."""
+    kp, pp, chi2_total, S = _lm_round(prob.kf_pose, prob.pt_pos, prob,
+                                      prob.obs_valid, cam, use_huber=False,
+                                      n_iters=iterations)
+    r, _, _, z = _residuals(kp, pp, prob, cam)
+    th = torch.where(prob.obs_is_stereo, CHI2_STEREO, CHI2_MONO)
+    inlier = prob.obs_valid & (_chi2(r, prob) <= th) & (z > 0)
+    eye = torch.eye(S.shape[0], dtype=S.dtype, device=S.device)
+    Sinv = torch.linalg.inv_ex(S + 1e-9 * eye)[0]
+    return BAResult(kf_pose=kp, pt_pos=pp, obs_inlier=inlier,
+                    newest_cov=Sinv[:6, :6], chi2=chi2_total)

@@ -1,0 +1,324 @@
+"""Visual vocabulary: a hierarchical binary descriptor tree (port of
+``sivo_tpu/place/vocabulary.py``; ref: DBoW2 TemplatedVocabulary.h).
+
+The k^L-word hierarchical k-medians tree is flat arrays: node centroids
+packed as (n_nodes, 32) uint8 (the ORB packing), an explicit children
+table (-1 padded, leaf rows self-loop, so ragged trees load too) and the
+node -> word table. ``transform``, the per-descriptor greedy descent,
+runs as ``depth`` batched steps over all keypoints on the descriptors'
+device: XOR-popcount distances to the candidate children, argmin with
+ties to the first child. The JAX package computes ``popcount(c) - 2
+a.c`` on 0/1 bit matrices, which is the Hamming distance minus a
+per-row constant, so the words and parents are the same.
+
+``Vocabulary`` keeps the host arrays; ``on(device)`` gives (and caches)
+their device copies. ``train``, the text and npz readers and writers
+are ports; ``bow_vector``, ``l1_score``, ``bow_arrays`` and
+``l1_score_arrays`` are copies of the JAX package's numpy functions
+(``tests/test_torch_copies.py``). The text reader is the Python parse
+only; the JAX package's optional native parser is not ported.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+
+import numpy as np
+import torch
+
+from sivo_tpu_torch.ops.kernel_match import popcount_u8
+
+
+@dataclass(eq=False)
+class Vocabulary:
+    """Flat node arrays on the host. Node 0 is the (virtual) root."""
+
+    k: int  # max branching factor
+    depth: int  # descent steps (max tree depth)
+    centroids: np.ndarray  # (n_nodes, 32) uint8 packed bits
+    children: np.ndarray  # (n_nodes, k) int32, -1 padded
+    word_id: np.ndarray  # (n_nodes,) int32, -1 for internal nodes
+    word_weights: np.ndarray  # (n_words,) float32 idf weights
+    n_words: int
+    _device: dict = field(default_factory=dict, repr=False)
+
+    def on(self, device: torch.device
+           ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """(centroids, children, word_id) on ``device``, uploaded once."""
+        device = torch.device(device)
+        if device not in self._device:
+            self._device[device] = tuple(
+                torch.from_numpy(np.array(a)).to(device)
+                for a in (self.centroids, self.children, self.word_id))
+        return self._device[device]
+
+
+def _unpack_bits_np(desc_u8: np.ndarray) -> np.ndarray:
+    return np.unpackbits(
+        desc_u8.astype(np.uint8), axis=-1, bitorder="little"
+    ).astype(np.float32)
+
+
+def _pack_bits_np(bits: np.ndarray) -> np.ndarray:
+    return np.packbits(bits.astype(np.uint8), axis=-1, bitorder="little")
+
+
+def train(descriptors_u8: np.ndarray, k: int = 10, depth: int = 4,
+          seed: int = 0, iters: int = 8) -> Vocabulary:
+    """Hierarchical binary k-medians (DBoW2's HKmeansStep scheme) on
+    packed descriptors (M, 32); idf weights from the training set's word
+    frequencies (ref: TemplatedVocabulary TF_IDF setNodeWeights)."""
+    rng = np.random.default_rng(seed)
+    bits = _unpack_bits_np(descriptors_u8)
+
+    def kmedians(data: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+        kk = min(k, max(len(data), 1))
+        if len(data) <= kk:
+            cent = data.copy() if len(data) else rng.integers(
+                0, 2, (1, 256)
+            ).astype(np.float32)
+            return cent, np.arange(len(data)) % max(len(cent), 1)
+        idx = rng.choice(len(data), kk, replace=False)
+        cent = data[idx].copy()
+        assign = None
+        for _ in range(iters):
+            d = data @ (1 - 2 * cent.T) + cent.sum(1)[None, :]
+            assign = np.argmin(d, axis=1)
+            for j in range(kk):
+                sel = data[assign == j]
+                if len(sel):
+                    cent[j] = (sel.mean(0) > 0.5).astype(np.float32)
+        return cent, assign
+
+    # build the tree breadth-first
+    centroids = [np.zeros((1, 256), np.float32)]  # root placeholder
+    children: list[list[int]] = [[]]
+    word_id = [-1]
+    queue = [(0, bits, 0)]  # (node, data, level)
+    n_words = 0
+    while queue:
+        node, data, level = queue.pop(0)
+        if level >= depth or len(data) <= 1:
+            word_id[node] = n_words
+            n_words += 1
+            continue
+        cent, assign = kmedians(data)
+        for j in range(len(cent)):
+            cid = len(centroids)
+            centroids.append(cent[j : j + 1])
+            children.append([])
+            word_id.append(-1)
+            children[node].append(cid)
+            queue.append((cid, data[assign == j], level + 1))
+
+    n_nodes = len(centroids)
+    child_arr = np.full((n_nodes, k), -1, np.int32)
+    for i, ch in enumerate(children):
+        if ch:
+            child_arr[i, : len(ch)] = ch
+        else:
+            child_arr[i, 0] = i  # leaf self-loop
+    voc = Vocabulary(
+        k=k, depth=depth,
+        centroids=_pack_bits_np(np.concatenate(centroids, axis=0)),
+        children=child_arr, word_id=np.array(word_id, np.int32),
+        word_weights=np.ones(n_words, np.float32), n_words=n_words)
+    packed = np.ascontiguousarray(descriptors_u8, dtype=np.uint8)
+    counts = np.zeros(n_words, np.float64)
+    for i in range(0, len(packed), 8192):
+        chunk = torch.from_numpy(packed[i : i + 8192])
+        w, _ = transform(voc, chunk, torch.ones(len(chunk), dtype=torch.bool))
+        w = w.numpy()
+        counts += np.bincount(w[w >= 0], minlength=n_words)
+    idf = np.log(max(len(bits), 1) / np.maximum(counts, 1.0))
+    voc.word_weights = idf.astype(np.float32)
+    return voc
+
+
+_BIG = 1 << 20  # above any Hamming distance: a missing child
+
+
+def transform(voc: Vocabulary, desc_u8: torch.Tensor, valid: torch.Tensor
+              ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Quantize packed descriptors (N, 32) to words by greedy Hamming
+    descent (ref: TemplatedVocabulary.h:1127-1199 transform), on their
+    device. Returns (word ids (N,) int32 or -1, parent node ids (N,)
+    int32: the coarser grouping node, DBoW2's "levelsup")."""
+    cent, children, word_id = voc.on(desc_u8.device)
+    n = desc_u8.shape[0]
+    node = torch.zeros(n, dtype=torch.long, device=desc_u8.device)
+    parent = torch.zeros_like(node)
+    for _ in range(voc.depth):
+        cand_idx = children[node].long()  # (N, k)
+        cand = cent[torch.clamp(cand_idx, min=0)]  # (N, k, 32)
+        d = popcount_u8(desc_u8[:, None, :] ^ cand).sum(-1, dtype=torch.int32)
+        d = torch.where(cand_idx >= 0, d, torch.full_like(d, _BIG))
+        best = torch.argmin(d, dim=1)  # first index on ties
+        new_node = torch.gather(cand_idx, 1, best[:, None])[:, 0]
+        parent = torch.where(new_node != node, node, parent)
+        node = new_node
+    minus1 = torch.full((n,), -1, dtype=torch.int32, device=desc_u8.device)
+    return (torch.where(valid, word_id[node], minus1),
+            torch.where(valid, parent.to(torch.int32), minus1))
+
+
+_HOST_WEIGHTS_CACHE: dict[int, np.ndarray] = {}
+
+
+def bow_vector(voc: Vocabulary, words: np.ndarray) -> dict[int, float]:
+    """Host-side sparse TF-IDF BoW vector, L1-normalized
+    (ref: BowVector::addWeight + normalize(L1))."""
+    w = np.asarray(words)
+    w = w[w >= 0]
+    key = id(voc.word_weights)
+    weights = _HOST_WEIGHTS_CACHE.get(key)
+    if weights is None:
+        weights = np.asarray(voc.word_weights)
+        _HOST_WEIGHTS_CACHE.clear()
+        _HOST_WEIGHTS_CACHE[key] = weights
+    vec: dict[int, float] = {}
+    for wid in w.tolist():
+        vec[wid] = vec.get(wid, 0.0) + float(weights[wid])
+    total = sum(vec.values())
+    if total > 0:
+        vec = {key: v / total for key, v in vec.items()}
+    return vec
+
+
+def l1_score(a: dict[int, float], b: dict[int, float]) -> float:
+    """DBoW2 L1 scoring (ref: ScoringObject.cc L1Scoring::score):
+    s = -0.5 * sum_{common} (|a_i - b_i| - |a_i| - |b_i|)."""
+    s = 0.0
+    for wid, va in a.items():
+        vb = b.get(wid)
+        if vb is not None:
+            s += abs(va - vb) - abs(va) - abs(vb)
+    return -0.5 * s
+
+
+def bow_arrays(vec: dict[int, float]) -> tuple[np.ndarray, np.ndarray]:
+    """Sparse BoW vector as sorted (word ids (W,), weights (W,)) arrays
+    — the vectorized-scoring representation (the dict form stays the
+    canonical one for the inverted file)."""
+    if not vec:
+        return (
+            np.zeros(0, np.int64),
+            np.zeros(0, np.float32),
+        )
+    ids = np.fromiter(vec.keys(), np.int64, len(vec))
+    w = np.fromiter(vec.values(), np.float32, len(vec))
+    order = np.argsort(ids)
+    return ids[order], w[order]
+
+
+def l1_score_arrays(
+    a: tuple[np.ndarray, np.ndarray], b: tuple[np.ndarray, np.ndarray]
+) -> float:
+    """L1 score over sorted-array BoW vectors — numerically identical
+    to ``l1_score`` but vectorized (the reference's C++ merge walk,
+    ScoringObject.cc, is ~free; the python-dict loop is 1-2 ms per pair
+    at every keyframe — this makes scoring ALL covisible neighbours for
+    min_score affordable, removing the round-3 top-15 divergence)."""
+    ia, wa = a
+    ib, wb = b
+    if len(ia) == 0 or len(ib) == 0:
+        return 0.0
+    common, ka, kb = np.intersect1d(
+        ia, ib, assume_unique=True, return_indices=True
+    )
+    if len(common) == 0:
+        return 0.0
+    va, vb = wa[ka], wb[kb]
+    return float(
+        -0.5 * np.sum(np.abs(va - vb) - np.abs(va) - np.abs(vb))
+    )
+
+
+def save_text(voc: Vocabulary, path: str) -> None:
+    """DBoW2-style text writer (round-trips with ``load_text``): nodes
+    in BFS order excluding the root, each as ``parent_line_idx is_leaf
+    <32 bytes> weight`` after a ``k L scoring weighting`` header, the
+    ORBvoc.txt layout."""
+    order: list[int] = []
+    parent_of: dict[int, int] = {}
+    queue = [0]
+    while queue:
+        nid = queue.pop(0)
+        for c in voc.children[nid]:
+            c = int(c)
+            if c >= 0 and c != nid:
+                parent_of[c] = nid
+                order.append(c)
+                queue.append(c)
+    line_of = {nid: i for i, nid in enumerate(order)}
+    with open(path, "w") as f:
+        f.write(f"{voc.k} {voc.depth} 0 0\n")
+        for nid in order:
+            p = parent_of[nid]
+            pline = 0 if p == 0 else line_of[p] + 1
+            is_leaf = int(voc.word_id[nid] >= 0)
+            w = float(voc.word_weights[voc.word_id[nid]]) if is_leaf else 0.0
+            f.write(f"{pline} {is_leaf} "
+                    + " ".join(str(int(v)) for v in voc.centroids[nid])
+                    + f" {w}\n")
+
+
+def load_text(path: str) -> Vocabulary:
+    """DBoW2-format text reader; tolerates ragged trees
+    (ref: TemplatedVocabulary.h:1338 loadFromTextFile)."""
+    with open(path) as f:
+        header = f.readline().split()
+        k, depth = int(header[0]), int(header[1])
+        parents, rows, weights = [], [], []
+        for line in f:
+            parts = line.split()
+            if len(parts) < 35:
+                continue
+            parents.append(int(parts[0]))
+            rows.append([int(float(v)) for v in parts[2:34]])
+            weights.append(float(parts[34]))
+    return _assemble(k, depth, parents, np.array(rows, np.uint8).reshape(
+        -1, 32), weights)
+
+
+def save_npz(path: str, voc: Vocabulary) -> None:
+    """Binary round trip, in the JAX package's file layout."""
+    np.savez_compressed(path, k=voc.k, depth=voc.depth,
+                        centroids=voc.centroids, children=voc.children,
+                        word_id=voc.word_id, word_weights=voc.word_weights,
+                        n_words=voc.n_words)
+
+
+def load_npz(path: str) -> Vocabulary:
+    z = np.load(path)
+    return Vocabulary(k=int(z["k"]), depth=int(z["depth"]),
+                      centroids=z["centroids"].astype(np.uint8),
+                      children=z["children"].astype(np.int32),
+                      word_id=z["word_id"].astype(np.int32),
+                      word_weights=z["word_weights"].astype(np.float32),
+                      n_words=int(z["n_words"]))
+
+
+def _assemble(k, depth, parents, rows_u8, weights) -> Vocabulary:
+    """Node ids: 0 = root, text line i -> node i + 1; a line's parent
+    field is 0 for the root's children, else the parent's line + 1."""
+    n = len(parents)
+    cent_arr = np.concatenate([np.zeros((1, 32), np.uint8), rows_u8])
+    children_lists: list[list[int]] = [[] for _ in range(n + 1)]
+    for i, p in enumerate(parents):
+        children_lists[p].append(i + 1)
+    child_arr = np.full((n + 1, k), -1, np.int32)
+    word_id = np.full(n + 1, -1, np.int32)
+    word_w = []
+    for i in range(n + 1):
+        ch = children_lists[i]
+        if ch:
+            child_arr[i, : min(len(ch), k)] = ch[:k]
+        else:
+            child_arr[i, 0] = i  # leaf self-loop
+            word_id[i] = len(word_w)
+            word_w.append(weights[i - 1])
+    return Vocabulary(k=k, depth=depth, centroids=cent_arr,
+                      children=child_arr, word_id=word_id,
+                      word_weights=np.array(word_w, np.float32),
+                      n_words=len(word_w))

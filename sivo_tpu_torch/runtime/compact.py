@@ -13,9 +13,9 @@ Slot order stays time order, so every "slot index as clock" comparison
 (cull age, spanning-tree predecessors, recent-point cull windows)
 survives.
 
-Called at a drained-pipeline point (no frame in flight, mapper idle).
-The JAX package also remaps its loop closer's bookkeeping; the port has
-no loop closer yet.
+Called at a drained-pipeline point (no frame in flight, mapper idle,
+no global BA in flight); the loop closer's database, consistency groups,
+loop edges and last loop keyframe are remapped too.
 """
 
 from __future__ import annotations
@@ -81,6 +81,11 @@ def should_compact(system) -> bool:
                if m.n_keyframes else 0.0)
     critical = ((pt_occ > 0.95 and pt_dead > 0.01)
                 or (kf_occ > 0.95 and kf_dead > 0.01))
+    lc = getattr(system, "loop_closer", None)
+    if lc is not None and lc._gba is not None and not critical:
+        # compaction would have to finish the asynchronous post-loop GBA
+        # first; wait for it unless a store is critically full
+        return False
     return critical or ((pt_occ > 0.85 and pt_dead > 0.10)
                         or (kf_occ > 0.85 and kf_dead > 0.10))
 
@@ -191,5 +196,37 @@ def compact_map(system) -> dict:
         tr.last_kf_id = int(lut_kf[anc[tr.last_kf_id]])
     else:
         tr.last_kf_id = -1
+
+    lc = getattr(system, "loop_closer", None)
+    if lc is not None:
+        _remap_loop_closer(lc, lut_kf, anc, n_kf)
     return {"points_freed": int(n_pt - n_live_pt),
             "keyframes_freed": int(n_kf - n_live_kf)}
+
+
+def _remap_loop_closer(lc, lut_kf: np.ndarray, anc: np.ndarray,
+                       n_kf: int) -> None:
+    """The loop closer's keyframe ids through the compaction: the
+    database (dead keyframes leave it), the consistency groups, the loop
+    edges (ends chain to their nearest live ancestor) and the last loop
+    keyframe."""
+
+    def kmap(k: int) -> int:
+        return int(lut_kf[anc[k]]) if 0 <= k < n_kf else -1
+
+    db = lc.db
+    db.bow = {int(lut_kf[k]): v for k, v in db.bow.items()
+              if 0 <= k < n_kf and lut_kf[k] >= 0}
+    db.bow_arr = {}  # keyed by old ids; db.score rebuilds entries lazily
+    db.inverted = {}
+    for nk, v in db.bow.items():
+        for wid in v:
+            db.inverted.setdefault(wid, []).append(nk)
+    lc.consistent_groups = [
+        (g2, c) for g, c in lc.consistent_groups
+        if (g2 := {int(lut_kf[k]) for k in g
+                   if 0 <= k < n_kf and lut_kf[k] >= 0})]
+    lc.loop_edges = [(kmap(i), kmap(j), T) for i, j, T in lc.loop_edges
+                     if kmap(i) >= 0 and kmap(j) >= 0 and kmap(i) != kmap(j)]
+    if 0 <= lc.last_loop_kf < n_kf:
+        lc.last_loop_kf = kmap(lc.last_loop_kf)

@@ -50,6 +50,32 @@ CULL_WINDOW = 8192  # recent-point id window examined per keyframe
 ID_UPLOAD_CAP = 4096  # ids per count / kill upload, as in the JAX package
 
 
+def fuse_search(tracker, cam: CameraParams, cfg: SystemConfig,
+                pt_ids: torch.Tensor, pt_alive: torch.Tensor, slot: int,
+                pose: np.ndarray) -> torch.Tensor:
+    """Project the candidate points into keyframe ``slot`` at ``pose``
+    and match them there (ref: ORBmatcher Fuse, ORBmatcher.cc:787-930):
+    one K2 search. Used by the mapper's fusion and the loop closer's
+    SearchAndFuse. Returns (N,) int32 index into the candidates per
+    keypoint, or -1."""
+    dev = tracker.device
+    dm, store = tracker.dmap, tracker.kf_store
+    sf, nl = cfg.orb.scale_factor, cfg.orb.n_levels
+    ids = pt_ids.long()
+    maxd = dm.pt_max_dist[ids]
+    visible, uvr, dist, view_cos = frustum_check(
+        cam, to_device(pose, dev), dm.pt_pos[ids], dm.pt_normal[ids],
+        dm.pt_min_dist[ids], maxd)
+    lvl = predict_scale(dist, maxd / 1.2, sf, nl)
+    scales = sf ** torch.arange(nl, dtype=torch.float32, device=dev)
+    res = matching.search_by_projection_points(
+        dm.pt_desc_u8[ids], visible & pt_alive & dm.pt_valid[ids], uvr,
+        lvl, view_cos, store.xy[slot], store.level[slot],
+        store.desc_u8[slot], store.u_right[slot], store.semantic[slot],
+        scales, th=3.0, nn_ratio=1.0, accept_th=matching.TH_LOW)
+    return res.src_for_dst
+
+
 @dataclass
 class LocalMapper:
     """Two-stage pipelined mapper (see the module docstring)."""
@@ -121,9 +147,11 @@ class LocalMapper:
                         "ctx_tri": ctx_tri, "ctx_fuse": ctx_fuse,
                         "copy": copy}
 
-    def advance(self, tracker, block: bool = False) -> None:
+    def advance(self, tracker, block: bool = False) -> list[int]:
         """Apply the stages whose copies have landed (all of them with
-        ``block``); called once per tracked frame."""
+        ``block``); called once per tracked frame. Returns the keyframes
+        whose mapping completed (ready for loop closing)."""
+        done: list[int] = []
         if self._ba is not None and (block or self._ba["copy"].done()):
             ba = self._ba
             self._ba = None
@@ -131,6 +159,7 @@ class LocalMapper:
                 self._ba_apply(tracker, ba)
             with self.timer.stage("map.cull_kfs"):
                 self._cull_keyframes(ba["kf"])
+            done.append(ba["kf"])
         if (self._phase1 is not None and self._ba is None
                 and (block or self._phase1["copy"].done())):
             p = self._phase1
@@ -156,15 +185,21 @@ class LocalMapper:
                 with self.timer.stage("map.ba_dispatch"):
                     self._ba = self._ba_dispatch(tracker, kf_idx)
                 self._kfs_since_ba = 0
+            if self._ba is None:
+                done.append(kf_idx)
         if self._phase1 is None and self._queue:
             self._admit(tracker)
             if block and self._phase1 is not None:
-                self.advance(tracker, block=True)
+                done += self.advance(tracker, block=True)
+        return done
 
-    def drain(self, tracker) -> None:
-        """Run the pipeline to completion (flush / backpressure)."""
+    def drain(self, tracker) -> list[int]:
+        """Run the pipeline to completion (flush / backpressure); returns
+        the keyframes whose mapping completed."""
+        done: list[int] = []
         while self.busy:
-            self.advance(tracker, block=True)
+            done += self.advance(tracker, block=True)
+        return done
 
     def _neighbors(self, kf_idx: int, n: int) -> list[int]:
         """The ``n`` most covisible keyframes of ``kf_idx``."""
@@ -183,27 +218,10 @@ class LocalMapper:
 
     def _fuse_search(self, tracker, pt_ids, pt_alive, slot: int,
                      pose: np.ndarray) -> torch.Tensor:
-        """Project the candidate points into keyframe ``slot`` at
-        ``pose`` and match them there (ref: ORBmatcher Fuse,
-        ORBmatcher.cc:787-930): one K2 search. Returns (N,) int32 index
-        into the candidates per keypoint, or -1."""
-        dev = tracker.device
-        dm, store = tracker.dmap, tracker.kf_store
-        sf, nl = self.cfg.orb.scale_factor, self.cfg.orb.n_levels
-        ids = pt_ids.long()
-        maxd = dm.pt_max_dist[ids]
-        visible, uvr, dist, view_cos = frustum_check(
-            self.cam, to_device(pose, dev), dm.pt_pos[ids],
-            dm.pt_normal[ids], dm.pt_min_dist[ids], maxd)
-        lvl = predict_scale(dist, maxd / 1.2, sf, nl)
-        scales = sf ** torch.arange(nl, dtype=torch.float32, device=dev)
+        """``fuse_search``, counted in ``fuse_searches``."""
         self.fuse_searches += 1
-        res = matching.search_by_projection_points(
-            dm.pt_desc_u8[ids], visible & pt_alive & dm.pt_valid[ids], uvr,
-            lvl, view_cos, store.xy[slot], store.level[slot],
-            store.desc_u8[slot], store.u_right[slot], store.semantic[slot],
-            scales, th=3.0, nn_ratio=1.0, accept_th=matching.TH_LOW)
-        return res.src_for_dst
+        return fuse_search(tracker, self.cam, self.cfg, pt_ids, pt_alive,
+                           slot, pose)
 
     def _fuse_dispatch(self, tracker, kf_idx: int, outs: dict):
         """SearchInNeighbors device phase (ref: LocalMapping.cc:547-637

@@ -9,14 +9,19 @@ orchestration plus the device stream: ``track_frame(pipeline=True)``
 keeps ``pipeline_depth`` frames in flight, and the mapper's stages run
 on the device between frames.
 
-Loop closing and relocalization through the keyframe database are not
-ported yet: a lost frame resets the session while the map has at most 5
-keyframes, as the JAX package does without a loop closer, and otherwise
-stays lost.
+With a vocabulary (``System(..., vocabulary=voc)`` or
+``attach_vocabulary``) the session runs the loop closer
+(``runtime/loopclosing.py``) on every keyframe whose mapping completed,
+and a lost frame relocalizes through the keyframe database: BoW
+candidates, a K2 brute force against each, EPnP RANSAC, then K2
+projection rounds and pose polishing (ref: Tracking.cc:1237-1396).
+Lost with at most 5 keyframes, the session resets (ref:
+Tracking.cc:417-425); without a vocabulary it otherwise stays lost.
 """
 
 from __future__ import annotations
 
+import contextlib
 from dataclasses import dataclass
 from typing import Optional
 
@@ -24,15 +29,22 @@ import numpy as np
 import torch
 
 from sivo_tpu_torch.config import SystemConfig
+from sivo_tpu_torch.geometry.projection import frustum_check, predict_scale
 from sivo_tpu_torch.io import trajectory as traj_io
 from sivo_tpu_torch.models import segnet as segnet_mod
+from sivo_tpu_torch.ops import kernel_match, matching
+from sivo_tpu_torch.optim import pose_lm
+from sivo_tpu_torch.place import pnp as pnp_mod
+from sivo_tpu_torch.place import vocabulary as voc_mod
 from sivo_tpu_torch.runtime import compact as compact_mod
 from sivo_tpu_torch.runtime import frame as frame_mod
 from sivo_tpu_torch.runtime import track_step as ts
+from sivo_tpu_torch.runtime.loopclosing import LoopCloser
 from sivo_tpu_torch.runtime.map_state import MapState
 from sivo_tpu_torch.runtime.mapping import LocalMapper
 from sivo_tpu_torch.runtime.tracking import Tracker, TrackingState
 from sivo_tpu_torch.utils.profiling import StageTimer
+from sivo_tpu_torch.utils.transfer import HostCopy, to_device
 
 
 @dataclass
@@ -47,6 +59,9 @@ class System:
     # frames in flight in track_frame(pipeline=True); keyframe and loss
     # decisions lag by as many frames
     pipeline_depth: int = 2
+    # place.vocabulary.Vocabulary: enables loop closing and
+    # relocalization
+    vocabulary: Optional[voc_mod.Vocabulary] = None
 
     def __post_init__(self):
         if self.device is None:
@@ -71,6 +86,7 @@ class System:
             n_levels=self.cfg.orb.n_levels,
             scale_factor=self.cfg.orb.scale_factor)
         self.timer = StageTimer()
+        self.loop_closer: Optional[LoopCloser] = None
         self._make_tracker_and_mapper()
         # SegNet's MC-dropout masks
         self.generator = torch.Generator(device=self.device)
@@ -78,6 +94,13 @@ class System:
         self.crisis_frames = 0
         self.n_resets = 0
         self._prev_tracked = 0.0
+        self.reloc_attempts = 0
+        self.reloc_successes = 0
+        # K2 searches of relocalization, and the launches they made
+        self.reloc_k2_searches = 0
+        self.reloc_k2_launches = 0
+        # the database's candidates at each relocalization attempt
+        self.reloc_candidates: list[list[int]] = []
 
     def _make_tracker_and_mapper(self, frame_count: int = 0) -> None:
         self.tracker = Tracker(cfg=self.cfg, map=self.map,
@@ -88,12 +111,31 @@ class System:
             timer=self.timer, on_kf_culled=self._on_kf_culled,
             kf_protected=self._protected_kfs)
         self.tracker.mapper = self.mapper  # keyframe backpressure
+        if self.vocabulary is not None:
+            self.loop_closer = LoopCloser(cfg=self.cfg, map=self.map,
+                                          cam=self.tracker.cam,
+                                          voc=self.vocabulary,
+                                          timer=self.timer)
+
+    def attach_vocabulary(self, voc: voc_mod.Vocabulary) -> None:
+        """Enable loop closing and relocalization with a vocabulary given
+        after construction (the reference loads it first,
+        System.cc:75-82); keyframes made before are not in the
+        database."""
+        self.vocabulary = voc
+        self.loop_closer = LoopCloser(cfg=self.cfg, map=self.map,
+                                      cam=self.tracker.cam, voc=voc,
+                                      timer=self.timer)
 
     def _protected_kfs(self) -> set:
         """Keyframes the culler must not erase: the tracker's current
         reference keyframe, through which every later frame record
-        chains (the JAX package adds the loop-edge holders)."""
-        return {self.tracker.last_kf_id}
+        chains, and the loop-edge holders (ref: KeyFrame.cc:459-476)."""
+        prot = {self.tracker.last_kf_id}
+        if self.loop_closer is not None:
+            prot |= {k for i, j, _ in self.loop_closer.loop_edges
+                     for k in (i, j)}
+        return prot
 
     def _on_kf_culled(self, k: int) -> None:
         """Re-express the trajectory records referencing a culled
@@ -116,6 +158,8 @@ class System:
                 r.rel_pose = (r.rel_pose.astype(np.float64)
                               @ delta).astype(np.float32)
                 r.ref_kf = int(a)
+        if self.loop_closer is not None:
+            self.loop_closer.on_keyframe_culled(k)
 
     # -- per-frame API --------------------------------------------------------
 
@@ -201,10 +245,24 @@ class System:
     def _on_keyframe(self, kf_idx: int) -> None:
         with self.timer.stage("mapping"):
             self.mapper.on_keyframe(kf_idx)
+        self._run_loop_closer([])
 
     def _advance_mapping(self) -> None:
         with self.timer.stage("map.advance"):
-            self.mapper.advance(self.tracker)
+            done = self.mapper.advance(self.tracker)
+        self._run_loop_closer(done)
+
+    def _run_loop_closer(self, kf_indices, block: bool = False) -> None:
+        """Loop closing for the keyframes whose mapping completed: their
+        BoW quantization is enqueued now, detection runs when the words
+        have landed (ref: LocalMapping.cc:90 InsertKeyFrame -> the
+        LoopClosing::Run queue)."""
+        if self.loop_closer is None:
+            return
+        with self.timer.stage("loop_closing"):
+            for kf_idx in kf_indices:
+                self.loop_closer.begin_keyframe(self.tracker, kf_idx)
+            self.loop_closer.poll(self.tracker, block=block)
 
     def flush(self) -> Optional[np.ndarray]:
         """Complete all in-flight work: retire the pipelined frames and
@@ -214,7 +272,8 @@ class System:
         while self.tracker.inflight_count:
             p = self._retire_one()
             pose = p if p is not None else pose
-        self.mapper.drain(self.tracker)
+        done = self.mapper.drain(self.tracker)
+        self._run_loop_closer(done, block=True)
         # keyframes the mapper never admitted still need their host
         # bookkeeping
         for kf_idx in list(self.tracker._kf_host_pending):
@@ -226,6 +285,9 @@ class System:
         needs drained pipelines, so it flushes first."""
         with self.timer.stage("compact"):
             self.flush()
+            if self.loop_closer is not None:
+                # an in-flight GBA holds pre-compaction ids
+                self.loop_closer.finish_gba(self.tracker)
             compact_mod.compact_map(self)
 
     def activate_localization_mode(self) -> None:
@@ -238,14 +300,178 @@ class System:
         """ref: System.cc:233-243."""
         self.tracker.only_tracking = False
 
+    def seed_localization_pose(self, pose_tcw: np.ndarray,
+                               ref_kf: int) -> None:
+        """Re-seed tracking at a known pose and reference keyframe (for
+        replays that jump in time against a frozen map): clears the
+        velocity model and re-anchors the reference keyframe and the
+        local map, as relocalization does. A culled ``ref_kf`` is
+        replaced by the live keyframe nearest the pose."""
+        m, tr = self.map, self.tracker
+        ref_kf = int(ref_kf)
+        if not m.kf_valid[ref_kf]:
+            valid = np.where(m.kf_valid[: m.n_keyframes])[0]
+            c = -pose_tcw[:3, :3].T @ pose_tcw[:3, 3]
+            centers = np.stack([m.kf_camera_center(int(k)) for k in valid])
+            ref_kf = int(valid[np.argmin(((centers - c) ** 2).sum(1))])
+        self._anchor_at(ref_kf)
+        tr.carry = tr.carry._replace(
+            pose=to_device(pose_tcw.astype(np.float32), tr.device),
+            has_velocity=torch.zeros((), dtype=torch.bool, device=tr.device))
+
+    def _anchor_at(self, kf_idx: int) -> None:
+        """Make ``kf_idx`` the tracker's reference keyframe: its
+        descriptors, angles and point ids for the anchor, and its
+        covisible local map."""
+        tr = self.tracker
+        tr.last_kf_id = kf_idx
+        tr._ref_desc_u8 = tr.kf_store.desc_u8[kf_idx].clone()
+        tr._ref_angle = tr.kf_store.angle[kf_idx].clone()
+        pts = self.mapper._kf_point_ids(kf_idx)
+        tr._ref_pt_idx = to_device(pts.astype(np.int32), tr.device)
+        tr.refresh_local_map(kf_idx)
+
+    @contextlib.contextmanager
+    def _reloc_search(self, n: int):
+        """Count ``n`` K2 searches of relocalization and their launches."""
+        before = kernel_match.LAUNCHES
+        yield
+        self.reloc_k2_searches += n
+        self.reloc_k2_launches += kernel_match.LAUNCHES - before
+
     def _relocalize(self, f, timestamp: float) -> Optional[np.ndarray]:
-        """Lost with at most 5 keyframes: reset the session, as the
-        reference does (ref: Tracking.cc:417-425). Relocalization from
-        the keyframe database comes with loop closing, not yet ported."""
-        del f, timestamp
+        """Relocalization from the keyframe database
+        (ref: Tracking.cc:1237-1396): BoW candidates, a K2 brute force
+        against each, EPnP RANSAC, a coarse K2 projection round (window
+        10) and pose polishing, a fine round (window 3) when the coarse
+        one lands 15-49 inliers; accept at 50 inliers. Lost with at most
+        5 keyframes, the session resets (ref: Tracking.cc:417-425)."""
+        del timestamp
         if self.map.n_keyframes <= 5:
             self.reset()
+            return None
+        lc = self.loop_closer
+        if lc is None:
+            return None
+        self.reloc_attempts += 1
+        tr, m = self.tracker, self.map
+        dev = tr.device
+        words, _ = voc_mod.transform(lc.voc, f.desc_u8, f.semantic)
+        bow = voc_mod.bow_vector(lc.voc, words.cpu().numpy())
+        cands = lc.db.detect_relocalization_candidates(bow,
+                                                       lc._covis_groups())
+        self.reloc_candidates.append(list(cands))
+        sf = self.cfg.orb.scale_factor
+        sigma2 = sf ** (2.0 * f.level.to(torch.float32))
+        store = tr.kf_store
+        for cand in cands[:5]:
+            pts = lc._kf_point_ids(cand)
+            with self._reloc_search(1):
+                res_bf = matching.search_brute_force(
+                    store.desc_u8[cand], to_device(pts >= 0, dev),
+                    store.angle[cand], f.desc_u8, f.semantic, f.angle,
+                    nn_ratio=0.75)  # ref: Tracking.cc:1255
+            src = HostCopy({"src": res_bf.src_for_dst}).result()["src"]
+            hit = src >= 0
+            if hit.sum() < 15:  # ref: Tracking.cc:1283
+                continue
+            pt_ids = np.full(f.capacity, -1, np.int64)
+            pt_ids[hit] = pts[src[hit]]
+
+            def points_of(ids):
+                has = ids >= 0
+                pw = np.zeros((f.capacity, 3), np.float32)
+                pw[has] = m.pt_pos[ids[has]]
+                return to_device(pw, dev), to_device(has, dev)
+
+            pw_d, has_d = points_of(pt_ids)
+            gen = torch.Generator(device=dev)
+            gen.manual_seed(tr.frame_count)
+            res = pnp_mod.ransac_pnp(pw_d, f.xy, sigma2, has_d, gen, tr.cam)
+            if not bool(res.ok):
+                continue
+            # projection round (ref: Tracking.cc:1342-1385): grow the
+            # match set from the candidate's covisible local map
+            ids = m.local_point_ids(cand, ts.LOCAL_CAND)
+            pad = np.full(ts.LOCAL_CAND, -1, np.int32)
+            pad[: len(ids)] = ids
+            pad_d = to_device(pad, dev)
+
+            def project_round(pose, th):
+                proj = self._reloc_project(pad_d, pose, f, th)
+                merged = pt_ids.copy()
+                fill = (merged < 0) & (proj >= 0)
+                merged[fill] = proj[fill]
+                return merged
+
+            pt_ids = project_round(res.pose, 10.0)  # ref window th=10
+            pw_d, has_d = points_of(pt_ids)
+            obs = pose_lm.PoseObservations(
+                points=pw_d, uvr=torch.cat([f.xy, f.u_right[:, None]], -1),
+                sigma2=sigma2, is_stereo=f.u_right > 0, valid=has_d)
+            final = pose_lm.optimize_pose(res.pose, obs, tr.cam)
+            n_in = int(final.n_inliers)
+            if 15 <= n_in < 50:
+                # fine round (ref: Tracking.cc:1360-1385): a narrow
+                # window around the polished pose
+                pt_ids = project_round(final.pose, 3.0)
+                pw_d, has_d = points_of(pt_ids)
+                obs = obs._replace(points=pw_d, valid=has_d)
+                final = pose_lm.optimize_pose(final.pose, obs, tr.cam)
+                n_in = int(final.n_inliers)
+            if n_in < 50:
+                continue
+            # success: rebuild the tracker's state at the new pose
+            self.reloc_successes += 1
+            out = HostCopy({"pose": final.pose, "cov": final.covariance,
+                            "inl": final.inliers}).result()
+            pose, cov = out["pose"], out["cov"]
+            pt_ids[~out["inl"]] = -1
+            tr.last_pose, tr.last_cov = pose, cov
+            tr.state = TrackingState.OK
+            # re-anchor the reference keyframe and the local map at the
+            # relocalization site
+            self._anchor_at(cand)
+            tr.carry = tr.carry._replace(
+                pose=final.pose, cov=final.covariance,
+                has_velocity=torch.zeros((), dtype=torch.bool, device=dev),
+                pt_idx=to_device(pt_ids.astype(np.int32), dev),
+                desc_u8=f.desc_u8, level=f.level, angle=f.angle,
+                valid=f.valid)
+            if tr.trajectory:
+                tr.trajectory[-1].pose = pose
+                tr.trajectory[-1].rel_pose = tr._rel_pose(pose)
+                tr.trajectory[-1].ref_kf = cand
+                tr.trajectory[-1].lost = False
+            return pose
         return None
+
+    def _reloc_project(self, local_ids: torch.Tensor, pose: torch.Tensor,
+                       f, th: float) -> np.ndarray:
+        """Relocalization projection round (ref: Tracking.cc:1342-1385):
+        SearchByProjection of the local map around ``pose``, one K2
+        search. Returns (N,) point id per keypoint, or -1."""
+        dm = self.tracker.dmap
+        sf, nl = self.cfg.orb.scale_factor, self.cfg.orb.n_levels
+        cand = torch.clamp(local_ids, 0, dm.capacity - 1).long()
+        visible, uvr, dist, view_cos = frustum_check(
+            self.tracker.cam, pose, dm.pt_pos[cand], dm.pt_normal[cand],
+            dm.pt_min_dist[cand], dm.pt_max_dist[cand])
+        visible = visible & (local_ids >= 0) & dm.pt_valid[cand]
+        lvl = predict_scale(dist, dm.pt_max_dist[cand] / 1.2, sf, nl)
+        scales = sf ** torch.arange(nl, dtype=torch.float32,
+                                    device=pose.device)
+        with self._reloc_search(1):
+            res = matching.search_by_projection_points(
+                dm.pt_desc_u8[cand], visible, uvr, lvl, view_cos, f.xy,
+                f.level, f.desc_u8, f.u_right, f.semantic, scales, th=th,
+                nn_ratio=0.8)
+        hit = res.src_for_dst >= 0
+        ids = torch.where(
+            hit, cand[torch.clamp(res.src_for_dst, 0, cand.shape[0] - 1)
+                      .long()].to(torch.int32),
+            torch.full_like(res.src_for_dst, -1))
+        return HostCopy({"ids": ids}).result()["ids"].astype(np.int64)
 
     def reset(self) -> None:
         """Full session reset (ref: Tracking.cc:1398-1435 +

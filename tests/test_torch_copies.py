@@ -5,7 +5,12 @@ to their originals: ``sivo_tpu_torch/config.py`` (the default
 ``sivo_tpu_torch/io/trajectory.py`` (every function's source, and the
 files both write) and ``StageTimer`` of
 ``sivo_tpu_torch/utils/profiling.py`` (its class source; its
-``scalar_sync`` takes a tensor and reads the same element)."""
+``scalar_sync`` takes a tensor and reads the same element), the numpy
+functions of ``sivo_tpu_torch/place/vocabulary.py`` (``bow_vector``,
+``l1_score``, ``bow_arrays``, ``l1_score_arrays``: source for source, up
+to the JAX package's ``jnp.ndarray`` annotation of the words)
+and ``sivo_tpu_torch/place/database.py`` (the whole module's source, up
+to its import of the vocabulary module)."""
 
 import dataclasses
 import inspect
@@ -17,10 +22,14 @@ import torch
 from sivo_tpu import config as j_config
 from sivo_tpu.io import synthetic as j_synth
 from sivo_tpu.io import trajectory as j_traj
+from sivo_tpu.place import database as j_db
+from sivo_tpu.place import vocabulary as j_voc
 from sivo_tpu.utils import profiling as j_prof
 from sivo_tpu_torch import config as t_config
 from sivo_tpu_torch.io import synthetic as t_synth
 from sivo_tpu_torch.io import trajectory as t_traj
+from sivo_tpu_torch.place import database as t_db
+from sivo_tpu_torch.place import vocabulary as t_voc
 from sivo_tpu_torch.utils import profiling as t_prof
 
 CAM_FIELDS = dict(fx=90.0, fy=90.0, cx=64.0, cy=40.0, width=128,
@@ -117,3 +126,24 @@ def test_stage_timer_source_equal():
 def test_scalar_sync_reads_the_first_element():
     x = torch.arange(6, dtype=torch.float32).reshape(2, 3) + 1.5
     assert t_prof.scalar_sync(x) == j_prof.scalar_sync(np.asarray(x)) == 1.5
+
+
+VOCABULARY_COPIES = ("bow_vector", "l1_score", "bow_arrays",
+                     "l1_score_arrays")
+
+
+@pytest.mark.parametrize("name", VOCABULARY_COPIES)
+def test_vocabulary_function_source_equal(name):
+    assert (inspect.getsource(getattr(t_voc, name))
+            == inspect.getsource(getattr(j_voc, name)).replace(
+                "words: jnp.ndarray", "words: np.ndarray"))
+
+
+def test_database_source_equal_up_to_the_import():
+    def lines(module, package):
+        src = inspect.getsource(module).splitlines()
+        imp = f"from {package}.place import vocabulary as voc_mod"
+        assert src.count(imp) == 1
+        return [line for line in src if line != imp]
+
+    assert lines(t_db, "sivo_tpu_torch") == lines(j_db, "sivo_tpu")

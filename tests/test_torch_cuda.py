@@ -13,9 +13,12 @@ columns, one row, warps with no valid row beside warps with one; K1
 keypoints not a multiple of a block's 16, keypoints at and past the
 clamp edges, a flat patch. K2 is also held at the mapper's fusion
 parameters (th 3, nn_ratio 1.0, accept at TH_LOW) through
-``matching.search_by_projection_points``, and the SLAM session
-(``System`` with the local mapper) runs on the card against the same
-run on the CPU.
+``matching.search_by_projection_points`` and at the loop closer's Sim3
+parameters (``use_ur`` False, window th 7.5 at level +-1, TH_HIGH)
+through ``matching.search_by_sim3``; the SLAM session (``System`` with
+the local mapper) runs on the card against the same run on the CPU, and
+so does the loop closer on tests/test_loopclosing.py's drifted
+out-and-back map, built here with the port's own frontend.
 """
 
 import dataclasses
@@ -26,9 +29,16 @@ import torch
 
 from sivo_tpu_torch import config as t_config
 from sivo_tpu_torch.io import synthetic
+from sivo_tpu_torch.geometry import se3
 from sivo_tpu_torch.ops import kernel_match, kernel_orb, matching, orb
+from sivo_tpu_torch.optim import sim3_opt
+from sivo_tpu_torch.place import vocabulary as t_voc
+from sivo_tpu_torch.runtime import device_map, kf_store
 from sivo_tpu_torch.runtime import frame as t_frame
+from sivo_tpu_torch.runtime.loopclosing import LoopCloser
+from sivo_tpu_torch.runtime.map_state import KeyFrameData, MapState
 from sivo_tpu_torch.runtime.system import System
+from sivo_tpu_torch.runtime.tracking import Tracker, make_camera
 
 pytestmark = pytest.mark.cuda
 
@@ -283,3 +293,170 @@ def test_system_on_card_matches_cpu(cuda):
     np.testing.assert_allclose(card.frame_poses()[:, :3, 3],
                                host.frame_poses()[:, :3, 3], rtol=0,
                                atol=1e-3)
+
+
+def test_k2_sim3_search_equals_plain(cuda):
+    """The loop closer's guided search (``matching.search_by_sim3``): two
+    K2 launches at use_ur False, the window th * scale at level +-1;
+    2048 keypoints a side related by a known Sim3, with missing points
+    on both sides. The card's matches equal the CPU's."""
+    rng = np.random.default_rng(11)
+    n = 2048
+    pc1 = np.stack([rng.uniform(-8, 8, n), rng.uniform(-2, 2, n),
+                    rng.uniform(4, 30, n)], 1).astype(np.float32)
+    ang = 0.1
+    R = np.array([[np.cos(ang), 0, np.sin(ang)], [0, 1, 0],
+                  [-np.sin(ang), 0, np.cos(ang)]], np.float32)
+    t = np.array([0.4, -0.1, 0.3], np.float32)
+    perm = rng.permutation(n)
+    pc2 = ((pc1 - t) @ R)[perm].astype(np.float32)
+    desc1 = rng.integers(0, 256, (n, 32)).astype(np.uint8)
+    desc2 = desc1[perm].copy()
+    desc2[rng.uniform(0, 1, (n, 32)) < 0.05] ^= np.uint8(4)
+    fx, fy, cx, cy = 700.0, 700.0, 512.0, 176.0
+
+    def xy(pc):
+        return (np.stack([fx * pc[:, 0] / pc[:, 2] + cx,
+                          fy * pc[:, 1] / pc[:, 2] + cy], 1)
+                + rng.normal(0, 1.5, (n, 2))).astype(np.float32)
+
+    level1 = rng.integers(0, 8, n).astype(np.int32)
+    arrays = [np.float32(1.0), R, t, pc1, rng.uniform(size=n) < 0.8, xy(pc1),
+              level1, desc1, pc2, rng.uniform(size=n) < 0.8, xy(pc2),
+              level1[perm], desc2, (1.2 ** np.arange(8)).astype(np.float32)]
+
+    def search(dev):
+        args = [torch.from_numpy(np.array(a)).to(dev) for a in arrays]
+        return matching.search_by_sim3(*args, fx, fy, cx, cy)
+
+    before = kernel_match.LAUNCHES
+    on_card = search(cuda)
+    assert kernel_match.LAUNCHES == before + 2
+    on_cpu = search(torch.device("cpu"))
+    assert torch.equal(on_card.cpu(), on_cpu)
+    assert int((on_cpu >= 0).sum()) > 500
+
+
+def _drifted_loop_map(dev, frames, kf_poses, cfg):
+    """tests/test_loopclosing.py's map: each frame a keyframe at its
+    drifted pose, 400 stereo points per keyframe, 150 shared with the
+    previous keyframe; host map, device map and keyframe store in
+    lockstep, on ``dev``."""
+    m = MapState(max_keyframes=64, max_points=20000, kp_capacity=1024)
+    tracker = Tracker(cfg=cfg, map=m, device=dev)
+    cam = cfg.camera
+    prev_ids = None
+    for i, f in enumerate(frames):
+        h = {k: getattr(f, k).cpu().numpy() for k in (
+            "xy", "level", "angle", "desc_u8", "u_right", "depth", "valid")}
+        nkp = len(h["xy"])
+        data = KeyFrameData(
+            frame_id=i, timestamp=i * 0.1, xy=h["xy"].copy(),
+            level=h["level"].copy(), angle=h["angle"], desc_u8=h["desc_u8"],
+            desc_bits=None, u_right=h["u_right"].copy(),
+            depth=h["depth"].copy(), sem_class=np.zeros(nkp, np.uint8),
+            sem_confidence=np.ones(nkp, np.float32),
+            sem_entropy=np.zeros(nkp, np.float32), semantic=h["valid"])
+        kf = m.add_keyframe(kf_poses[i], np.eye(6, dtype=np.float32) * 1e-4,
+                            data)
+        kp_idx = np.where((data.depth > 0) & data.semantic)[0][:400]
+        T = kf_poses[i].astype(np.float64)
+        Tinv = np.linalg.inv(T)
+        z = data.depth[kp_idx]
+        pc = np.stack([(data.xy[kp_idx, 0] - cam.cx) * z / cam.fx,
+                       (data.xy[kp_idx, 1] - cam.cy) * z / cam.fy, z], -1)
+        pw = (pc @ Tinv[:3, :3].T + Tinv[:3, 3]).astype(np.float32)
+        ids = m.add_points(pw, data.desc_u8[kp_idx],
+                           data.sem_class[kp_idx], kf, kp_idx,
+                           data.level[kp_idx])
+
+        def t(a):
+            return torch.from_numpy(np.array(a)).to(dev)
+
+        kf_store.insert(tracker.kf_store, kf, xy=t(data.xy),
+                        level=t(data.level), angle=t(data.angle),
+                        desc_u8=t(data.desc_u8), u_right=t(data.u_right),
+                        semantic=t(data.semantic),
+                        sem_class=t(data.sem_class),
+                        sem_confidence=t(data.sem_confidence),
+                        sem_entropy=t(data.sem_entropy))
+        sel = np.zeros(nkp, bool)
+        sel[kp_idx] = True
+        xw = np.zeros((nkp, 3), np.float32)
+        xw[kp_idx] = pw
+        tracker.dmap, dev_ids = device_map.add_points(
+            tracker.dmap, t(sel), t(xw), t(data.desc_u8), t(data.sem_class),
+            t(data.level), t((-T[:3, :3].T @ T[:3, 3]).astype(np.float32)),
+            cfg.orb.scale_factor, cfg.orb.n_levels)
+        np.testing.assert_array_equal(dev_ids.cpu().numpy()[kp_idx], ids)
+        if prev_ids is not None:
+            share = prev_ids[:150]
+            slots = np.arange(850, 850 + len(share))
+            pc_s = m.pt_pos[share].astype(np.float64) @ T[:3, :3].T + T[:3, 3]
+            zs = np.maximum(pc_s[:, 2], 0.1)
+            us = cam.fx * pc_s[:, 0] / zs + cam.cx
+            data.xy[slots, 0] = us
+            data.xy[slots, 1] = cam.fy * pc_s[:, 1] / zs + cam.cy
+            data.u_right[slots] = us - cam.bf / zs
+            data.depth[slots] = zs
+            data.level[slots] = 0
+            m.add_observations(kf, share, slots)
+        prev_ids = ids
+    return m, tracker
+
+
+_DRAW_SETS = sim3_opt.draw_sets
+
+
+def _sets_drawn_on_the_cpu(valid, generator, n_hypotheses=128):
+    """sim3_opt.draw_sets with a CPU generator of the same seed, so that
+    the card and the CPU try the same minimal sets."""
+    gen = torch.Generator().manual_seed(generator.initial_seed())
+    return _DRAW_SETS(valid.cpu(), gen, n_hypotheses).to(valid.device)
+
+
+def test_loop_closer_on_card_matches_cpu(cuda, monkeypatch):
+    """The loop closer on the out-and-back map of tests/test_loopclosing.py
+    (320x192, 13 keyframes, x drift 0.04 m per keyframe), on the card and
+    on the CPU with the same Sim3 minimal sets: the loop closes at the
+    same keyframe against the same candidate, corrected keyframe centres
+    within 1e-3 m, and on the card every K2 search launched the kernel."""
+    cfg = _vo_cfg()
+    cfg = dataclasses.replace(cfg, orb=dataclasses.replace(
+        cfg.orb, n_features=600, max_keypoints=1024))
+    world = synthetic.make_world(cfg.camera, seed=0)
+    fwd = synthetic.forward_trajectory(n_frames=7, speed=0.8, yaw_rate=0.0)
+    gt = np.concatenate([fwd, fwd[::-1][1:]])
+    left, right, _ = synthetic.render_sequence(world, gt)
+    cls, conf, ent = synthetic.constant_semantics(cfg.camera.height,
+                                                  cfg.camera.width)
+    statics = t_frame.make_statics(cfg)
+    cpu = torch.device("cpu")
+    frames = [t_frame.build_frame_nosegnet(statics, left[i], right[i], cls,
+                                           conf, ent, device=cpu)
+              for i in range(len(gt))]
+    drift = np.zeros((len(gt), 6), np.float32)
+    drift[:, 0] = 0.04 * np.arange(len(gt))
+    kf_poses = np.stack([se3.exp(torch.from_numpy(d)).numpy() @ g
+                         for d, g in zip(drift, gt)]).astype(np.float32)
+    desc = np.concatenate([f.desc_u8.numpy()[f.valid.numpy()]
+                           for f in frames])
+    voc = t_voc.train(desc, k=8, depth=3, seed=0)
+    monkeypatch.setattr(sim3_opt, "draw_sets", _sets_drawn_on_the_cpu)
+    runs = []
+    for dev in (cuda, cpu):
+        m, tracker = _drifted_loop_map(dev, frames, kf_poses, cfg)
+        lc = LoopCloser(cfg=cfg, map=m, cam=make_camera(cfg), voc=voc)
+        at = next((k for k in range(m.n_keyframes)
+                   if lc.process_keyframe(tracker, k)), None)
+        runs.append((lc, m, at))
+    (lc_c, m_c, at_c), (lc_h, m_h, at_h) = runs
+    assert at_c is not None and at_c == at_h
+    assert lc_c.loop_events[0]["cand"] == lc_h.loop_events[0]["cand"]
+    n = m_h.n_keyframes
+    centres = [np.stack([-p[:3, :3].T @ p[:3, 3] for p in mm.kf_pose[:n]])
+               for mm in (m_c, m_h)]
+    np.testing.assert_allclose(centres[0], centres[1], rtol=0, atol=1e-3)
+    assert lc_c.k2_launches == lc_c.k2_searches >= 4
+    assert lc_h.k2_launches == 0
+    assert lc_c.gba_applied == lc_h.gba_applied

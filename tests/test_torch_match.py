@@ -277,3 +277,49 @@ def test_cpu_tensors_take_the_plain_path():
     out_j, out_t = _both(p, True)
     assert kernel_match.LAUNCHES == before
     _assert_equal(out_j, out_t)
+
+
+@pytest.mark.parametrize("scale", [1.0, 1.1])
+def test_search_by_sim3_matches_jax(scale):
+    """Guided Sim3 search (the loop closer's, two K2 calls at use_ur
+    False): a keyframe pair related by a known Sim3, with permuted,
+    noisy descriptors and missing points on both sides."""
+    rng = np.random.default_rng(24)
+    n = 300
+    kf1 = _frame_like(rng, n)
+    pc1 = np.stack([rng.uniform(-8, 8, n), rng.uniform(-2, 2, n),
+                    rng.uniform(4, 30, n)], 1).astype(np.float32)
+    ang = 0.1
+    R = np.array([[np.cos(ang), 0, np.sin(ang)], [0, 1, 0],
+                  [-np.sin(ang), 0, np.cos(ang)]], np.float32)
+    t = np.array([0.4, -0.1, 0.3], np.float32)
+    s = np.float32(scale)
+    # p1 = s R p2 + t  ->  p2 = R^T (p1 - t) / s
+    pc2 = ((pc1 - t) @ R / s).astype(np.float32)
+    perm = rng.permutation(n)
+    kf2 = {k: v[perm] for k, v in _noisy_copy(rng, kf1, flip=0.05).items()}
+    pc2 = pc2[perm]
+    fx, fy, cx, cy = 300.0, 300.0, 320.0, 100.0
+    for f, pc in ((kf1, pc1), (kf2, pc2)):
+        f["xy"] = np.stack([fx * pc[:, 0] / pc[:, 2] + cx,
+                            fy * pc[:, 1] / pc[:, 2] + cy], 1)
+        f["xy"] = (f["xy"] + rng.normal(0, 1.5, f["xy"].shape)
+                   ).astype(np.float32)
+    has1 = rng.uniform(size=n) < 0.8
+    has2 = rng.uniform(size=n) < 0.8
+
+    def run(lib, pack, arr):
+        a, b = _tensors(kf1, pack), _tensors(kf2, pack)
+        return lib.search_by_sim3(
+            arr(s), arr(R), arr(t), arr(pc1), arr(has1), arr(a["xy"]),
+            arr(a["level"]), arr(a["bits"]), arr(pc2), arr(has2),
+            arr(b["xy"]), arr(b["level"]), arr(b["bits"]), arr(SCALES),
+            fx, fy, cx, cy)
+
+    mj = run(j_match, lambda b: b, jnp.asarray)
+    mt = run(t_match, _pack, lambda x: torch.from_numpy(np.array(x)))
+    np.testing.assert_array_equal(mt.numpy(), np.asarray(mj))
+    assert mt.dtype == torch.int32
+    hit = mt.numpy() >= 0
+    assert hit.sum() > 100
+    assert (perm[mt.numpy()[hit]] == np.arange(n)[hit]).mean() > 0.95
