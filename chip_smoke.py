@@ -13,6 +13,20 @@ each raising on failure:
    (angle atol 1e-4, 0 differing bits); times; bound;
 3. SegNet basic forward at 352x1024, MC=3, in cfg.semantic.cnn_dtype
    with seeded weights: probabilities finite and summing to 1;
+3b. SegNet standard (the VGG16-style variant, ~29.4 M parameters) at
+   its published widths: its seeded state, with the output layer
+   ``conv1_1_D`` set so that the posterior is certain and static (kernel
+   scaled by 1e-3, a bias of 30 on class 0), written as a ``.caffemodel``
+   (``flax_from_params`` + ``caffe_io.save_segnet_params``) and loaded
+   back through ``caffe_io.state_dict_from_caffemodel``, which must give
+   the state written; then ``segment_image`` at 352x1024, MC=3, in
+   cfg.semantic.cnn_dtype: probabilities finite and summing to 1 within
+   1e-3, class 0 on every pixel, entropy <= 1e-3 bits; median ms per
+   ``segment_image`` against its convolutions' FLOPs (``segnet.
+   conv_flops``) over the card's dense bf16 rate. The output layer is
+   test scaffolding for want of trained weights: the network runs at
+   full cost and tracking sees what ``--no-semantics`` gives it, so
+   phase 8 can be held to the JAX package's command line;
 4. K2 against its plain version on the inputs of its four searches on
    the main path, each at (2048, 2048): motion, local map and brute
    force kept from their last calls in one run of the slice (the
@@ -63,7 +77,29 @@ each raising on failure:
    (phase 4's ``sim3`` case, checked and timed after the run), and counts
    device syncs over all 190 frames.
 
-Phases 2-6 run on the first 40 of the 190 rendered frames.
+8. the command line, ``sivo_tpu_torch.cli.run`` in this process, on the
+   first 40 rendered frames written as a KITTI directory (``image_2/``,
+   ``image_3/`` PNGs, ``times.txt`` at the camera's fps, a
+   ``settings.yaml``) with the offline vocabulary written as DBoW text.
+   Run A: ``VOC SETTINGS bayesian_segnet_kitti.prototxt
+   standard.caffemodel DIR`` (SegNet standard from phase 3b's file, the
+   native vocabulary parser, loop closing on), its launch counters set
+   to 0 just before it and read just after, syncs counted; against the
+   JAX package's command line with ``--no-semantics`` on the same
+   directory (``tools/cli40_jax_reference.py``, ``REF_CLI``: two runs as
+   it runs on the CPU, and two with its host fetches landed by the next
+   frame, as the card's are): the loading lines, the native parse, one
+   SegNet standard forward per frame (a forward hook), a 40-row
+   trajectory starting at the identity, ATE <= 0.10 m and no worse than
+   twice the JAX runs' worst, keyframes within 3 of the landed runs'
+   (the pipelined mapper admits a keyframe once its copy has landed, so
+   the count follows that timing; the admissions deferred are printed),
+   K1 launched twice per frame and K2 at least once per tracked frame. Run B: the first 12 frames with ``basic_prototxt
+   - --no-semantics --save-frames DIR`` and no vocabulary: 12 overlays of
+   (352 + 20) x 1024, ``map_topdown.png``, a 12-row trajectory and no
+   SegNet forward.
+
+Phases 2-6 and 8 run on the first 40 of the 190 rendered frames.
 
 Kernel times: ``BATCH`` back-to-back calls captured in a CUDA graph,
 its replay timed between two CUDA events and divided by ``BATCH``; the
@@ -74,13 +110,16 @@ function must move over 3.35 TB/s and its float32 operations over 67
 TFLOP/s, counted from this run's inputs (``k1_bound``, ``k2_bound``).
 
 The second-to-last line of standard output is a JSON object of the
-kernels' launches, errors, times and bounds; the last line is
+kernels' launches (``launches_cli``: in phase 8's run A), errors, times
+and bounds; the last line is
 ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import io
 import json
 import os
 import statistics
@@ -91,14 +130,16 @@ import time
 import warnings
 from collections import Counter
 
+import cv2
 import numpy as np
 import torch
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
+from sivo_tpu_torch import cli, native  # noqa: E402
 from sivo_tpu_torch.config import SystemConfig  # noqa: E402
 from sivo_tpu_torch.io import synthetic  # noqa: E402
-from sivo_tpu_torch.models import segnet  # noqa: E402
+from sivo_tpu_torch.models import caffe_io, segnet  # noqa: E402
 from sivo_tpu_torch.ops import (  # noqa: E402
     image, kernel_match, kernel_orb, matching, orb)
 from sivo_tpu_torch.optim import local_ba  # noqa: E402
@@ -119,6 +160,7 @@ RUNS, BATCH = 30, 50  # kernel timing: median over RUNS of BATCH calls
 PLAIN_RUNS, PLAIN_BATCH = 10, 5
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
+BF16_OPS_PER_S = 989e12  # dense, the H100 SXM data sheet
 NO_LIBRARY = "no single PyTorch call computes it: "
 # K2's searches on the main path: case name -> function of ops/matching
 SEARCHES = {"motion": "search_by_projection_frame",
@@ -327,6 +369,81 @@ def phase_segnet(cfg: SystemConfig, left0, dev) -> segnet.SegNet:
           f"{cfg.semantic.cnn_dtype}: sum err {sum_err:.2e}, {ms:.3f} ms "
           "per segment_image")
     return model
+
+
+# phase 3b: SegNet standard's output layer, set so that the posterior is
+# certain and static (class 0 <= STATIC_CLASS_MAX); p(other classes)
+# ~ 14 exp(-30) = 1.3e-12
+STD_OUT_KERNEL_SCALE, STD_OUT_BIAS = 1e-3, 30.0
+
+
+def certain_static_standard(num_classes: int) -> dict:
+    """SegNet standard's seeded state (``init_params(seed=0)``) with the
+    output layer ``conv1_1_D`` scaled down and a large bias on class 0."""
+    state = segnet.init_params(seed=0, num_classes=num_classes,
+                               variant="standard")
+    state["convs.conv1_1_D.weight"] = (state["convs.conv1_1_D.weight"]
+                                       * STD_OUT_KERNEL_SCALE)
+    bias = torch.zeros(num_classes)
+    bias[0] = STD_OUT_BIAS
+    state["convs.conv1_1_D.bias"] = bias
+    return state
+
+
+def phase_segnet_standard(cfg: SystemConfig, left0, dev, work: str) -> dict:
+    """Phase 3b: SegNet standard through a .caffemodel and back, then
+    ``segment_image`` at full geometry, MC samples in cnn_dtype. Returns
+    the file's path and the timing."""
+    nc = cfg.semantic.num_classes
+    state = certain_static_standard(nc)
+    path = os.path.join(work, "standard.caffemodel")
+    caffe_io.save_segnet_params(path, segnet.flax_from_params(state))
+    loaded = caffe_io.state_dict_from_caffemodel(
+        path, "standard", segnet.init_params(seed=1, num_classes=nc,
+                                             variant="standard"))
+    _need(loaded.keys() == state.keys()
+          and all(torch.equal(loaded[k], state[k]) for k in state),
+          "SegNet standard: the .caffemodel did not load to the state "
+          "written")
+    model = segnet.SegNet("standard", num_classes=nc,
+                          dtype=segnet.dtype_of(cfg.semantic.cnn_dtype))
+    model.load_state_dict(loaded)
+    model = model.to(dev).eval()
+    n_params = sum(p.numel() for p in model.parameters())
+    img = torch.from_numpy(left0.astype(np.float32)).to(dev)
+    img = img[:, :, None].expand(-1, -1, 3)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    s, h, w = cfg.semantic.mc_samples, cfg.camera.height, cfg.camera.width
+    with torch.no_grad():
+        probs = model(img, mc_samples=s, generator=gen)
+        _need(tuple(probs.shape) == (s, h, w, nc),
+              f"SegNet standard shape {probs.shape}")
+        _need(bool(torch.isfinite(probs).all()), "SegNet standard: "
+              "non-finite")
+        sum_err = float((probs.sum(-1) - 1.0).abs().max())
+        cls, _, ent = segnet.posterior(probs.mean(0))
+        non_static = int((cls != 0).sum())
+        ent_max = float(ent.max())
+        ms = statistics.median(_run_times(
+            lambda: segnet.segment_image(model, img, gen, s), 10, 1))
+    flops = segnet.conv_flops("standard", h, w, s, nc)
+    bound_ms = 1e3 * flops / BF16_OPS_PER_S
+    print(f"[segnet] standard: {n_params} parameters, .caffemodel of "
+          f"{os.path.getsize(path) / 1e6:.1f} MB loaded back equal; "
+          f"{h}x{w} MC={s} {cfg.semantic.cnn_dtype}: sum err "
+          f"{sum_err:.2e}, pixels not class 0: {non_static}, max entropy "
+          f"{ent_max:.3g} bits")
+    print(f"[segnet] standard: {ms:.3f} ms per segment_image; its "
+          f"convolutions {flops / 1e12:.3f} TFLOP, {bound_ms:.3f} ms at "
+          f"{BF16_OPS_PER_S / 1e12:.0f} TFLOP/s dense bf16, "
+          f"{bound_ms / ms:.3f} of that bound")
+    _need(sum_err <= 1e-3, f"SegNet standard: probabilities sum off by "
+          f"{sum_err}")
+    _need(non_static == 0, f"SegNet standard: {non_static} pixels not "
+          "class 0")
+    _need(ent_max <= 1e-3, f"SegNet standard: entropy {ent_max} bits")
+    return {"caffemodel": path, "parameters": n_params, "ms": ms,
+            "tflop": flops / 1e12, "bf16_bound_ms": bound_ms}
 
 
 def run_slice(cfg, statics, model, left, right, sems, dev,
@@ -957,6 +1074,184 @@ def phase_loop(cfg, gt, left, right, sems, dev) -> dict:
             "sim3_case": sim3_case, "sim3_calls_per_frame": sim3_calls}
 
 
+# the JAX package's command line with --no-semantics on the same 40-frame
+# KITTI directory (tools/cli40_jax_reference.py): two runs as it runs on
+# the CPU, where the mapper admits keyframes late, and two with its host
+# fetches landed by the next frame (--landed), the card's regime
+REF_CLI = {"ate": (0.0145, 0.0116), "keyframes": (12, 13),
+           "ate_landed": (0.0102, 0.0102), "keyframes_landed": (17, 17)}
+N_CLI_SHORT = 12  # run B's frames
+
+
+def write_settings(path: str, cam, orb, sem, trk) -> None:
+    """KITTI03-style OpenCV YAML (ref: config/kitti/KITTI03.yaml)."""
+    with open(path, "w") as f:
+        f.write("%YAML:1.0\n\n")
+        for k, v in [
+            ("Camera.fx", cam.fx), ("Camera.fy", cam.fy),
+            ("Camera.cx", cam.cx), ("Camera.cy", cam.cy),
+            ("Camera.k1", cam.k1), ("Camera.k2", cam.k2),
+            ("Camera.p1", cam.p1), ("Camera.p2", cam.p2),
+            ("Camera.width", cam.width), ("Camera.height", cam.height),
+            ("Camera.fps", cam.fps), ("Camera.bf", cam.bf),
+            ("Camera.RGB", cam.rgb),
+            ("ThDepth", trk.th_depth),
+            ("ThConfidence", sem.th_confidence),
+            ("ThEntropyReduction", sem.th_entropy_reduction),
+            ("ORBextractor.nFeatures", orb.n_features),
+            ("ORBextractor.scaleFactor", orb.scale_factor),
+            ("ORBextractor.nLevels", orb.n_levels),
+            ("ORBextractor.iniThFAST", orb.ini_th_fast),
+            ("ORBextractor.minThFAST", orb.min_th_fast),
+        ]:
+            f.write(f"{k}: {v}\n")
+
+
+def write_kitti(out_dir: str, cfg: SystemConfig, left, right) -> str:
+    """Frames as a KITTI sequence directory (src/sivo.cc:145-177's
+    layout) with its settings file."""
+    for side, images in (("image_2", left), ("image_3", right)):
+        os.makedirs(os.path.join(out_dir, side), exist_ok=True)
+        for i, img in enumerate(images):
+            cv2.imwrite(os.path.join(out_dir, side, f"{i:06d}.png"),
+                        img.astype(np.uint8))
+    with open(os.path.join(out_dir, "times.txt"), "w") as f:
+        for i in range(len(left)):
+            f.write(f"{i / cfg.camera.fps:.6e}\n")
+    write_settings(os.path.join(out_dir, "settings.yaml"), cfg.camera,
+                   cfg.orb, cfg.semantic, cfg.tracking)
+    return out_dir
+
+
+def read_trajectory(path: str) -> np.ndarray:
+    """A KITTI trajectory file (rows Rwc | twc) as world-to-camera
+    poses."""
+    rows = np.loadtxt(path, ndmin=2).reshape(-1, 3, 4)
+    poses = np.tile(np.eye(4), (len(rows), 1, 1))
+    poses[:, :3, :] = rows
+    return np.linalg.inv(poses)
+
+
+def run_cli(argv: list[str], cwd: str, count_syncs: bool = False):
+    """``cli.run(argv)`` in ``cwd``, its standard output captured and
+    echoed, SegNet forwards counted per model by a global forward hook.
+    Returns (return code, system, output, {id(model): forwards}, sync
+    warnings)."""
+    forwards = Counter()
+
+    def hook(module, args, output):
+        if isinstance(module, segnet.SegNet):
+            forwards[id(module)] += 1
+
+    out = io.StringIO()
+    handle = torch.nn.modules.module.register_module_forward_hook(hook)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        if count_syncs:
+            torch.cuda.set_sync_debug_mode("warn")
+        try:
+            with contextlib.chdir(cwd), contextlib.redirect_stdout(out):
+                rc, system = cli.run(argv)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+            handle.remove()
+    text = out.getvalue()
+    for line in text.splitlines():
+        print(f"[cli]   | {line}")
+    syncs = [w for w in caught if "synchroniz" in str(w.message)]
+    return rc, system, text, forwards, syncs
+
+
+def phase_cli(cfg: SystemConfig, gt, left, right, dev, caffemodel: str,
+              work: str) -> dict:
+    """Phase 8: the command line, runs A and B."""
+    n = len(left)
+    seq = write_kitti(os.path.join(work, "seq"), cfg, left, right)
+    voc_txt = os.path.join(work, "voc.txt")
+    voc = voc_mod.load_npz(VOCABULARY)
+    voc_mod.save_text(voc, voc_txt)
+    settings = os.path.join(seq, "settings.yaml")
+    run_a = os.path.join(work, "run_a")
+    os.makedirs(run_a)
+    parses = native.PARSES
+    torch.cuda.reset_peak_memory_stats(dev)
+    kernel_orb.LAUNCHES = 0
+    kernel_match.LAUNCHES = 0
+    rc, system, text, forwards, syncs = run_cli(
+        [voc_txt, settings, "bayesian_segnet_kitti.prototxt", caffemodel,
+         seq], run_a, count_syncs=True)
+    launches = {"k1": kernel_orb.LAUNCHES, "k2": kernel_match.LAUNCHES}
+    peak_mb = torch.cuda.max_memory_allocated(dev) / 2**20
+    _need(rc == 0 and system is not None, f"CLI run A returned {rc}")
+    for want in (f"Loaded weights from {caffemodel}",
+                 f"Vocabulary loaded: {voc.n_words} words",
+                 f"Images in the sequence: {n}"):
+        _need(want in text, f"CLI run A printed no {want!r}")
+    median_s = float(text.split("median tracking time:")[1].split()[0])
+    poses = read_trajectory(os.path.join(run_a, "CameraTrajectory.txt"))
+    with open(os.path.join(run_a, "keyframes_points.txt")) as f:
+        n_kf = int(f.read().split("Final number of keyframes:")[1].split()[0])
+    lost = system.n_lost()
+    ate = synthetic.ate_rmse(poses, gt) if len(poses) == n else float("inf")
+    seg_a = forwards[id(system.model)]
+    first = float(np.abs(np.linalg.inv(poses[0]) - np.eye(4)).max())
+    print(f"[cli] run A ({n} frames, SegNet {system.segnet_variant} from "
+          f"the .caffemodel, vocabulary of {voc.n_words} words): lost "
+          f"{lost}, ATE {ate:.4f} m, keyframes {n_kf}, SegNet forwards "
+          f"{seg_a}, native vocabulary parses {native.PARSES - parses}; "
+          "JAX CLI reference (--no-semantics): "
+          + ", ".join(f"{k} {v}" for k, v in REF_CLI.items()))
+    print(f"[cli] run A: keyframe admissions deferred for a copy not yet "
+          f"landed: {system.mapper.admit_waits}")
+    print(f"[cli] run A: per-frame median {1e3 * median_s:.2f} ms (the "
+          f"CLI's median tracking time); device syncs {len(syncs) / n:.2f} "
+          f"per frame ({len(syncs)} over {n} frames); peak device memory "
+          f"{peak_mb:.1f} MiB")
+    print(f"[cli] run A launches: K1 {launches['k1']} (2 x {n} frames), K2 "
+          f"{launches['k2']}")
+    _need(native.PARSES > parses, "the native vocabulary parser was not "
+          "used")
+    _need(system.segnet_variant == "standard" and seg_a == n,
+          f"SegNet {system.segnet_variant} ran {seg_a} times on {n} frames")
+    _need(len(poses) == n, f"{len(poses)} trajectory rows")
+    _need(first <= 1e-5, f"first trajectory row off the identity by {first}")
+    _need(ate <= min(0.10, 2 * max(REF_CLI["ate"] + REF_CLI["ate_landed"])),
+          f"CLI ATE {ate:.4f} m")
+    ref_kf = REF_CLI["keyframes_landed"]
+    _need(min(ref_kf) - 3 <= n_kf <= max(ref_kf) + 3,
+          f"{n_kf} keyframes, expected within 3 of {ref_kf}")
+    _need(launches["k1"] == 2 * n, f"K1 launched {launches['k1']} times")
+    _need(launches["k2"] >= n - 1 - lost,
+          f"K2 launched {launches['k2']} times")
+
+    k = N_CLI_SHORT
+    seq_b = write_kitti(os.path.join(work, "seq_b"), cfg, left[:k],
+                        right[:k])
+    run_b = os.path.join(work, "run_b")
+    frames = os.path.join(run_b, "frames")
+    os.makedirs(run_b)
+    rc, _, _, forwards_b, _ = run_cli(
+        ["-", os.path.join(seq_b, "settings.yaml"), "basic_prototxt", "-",
+         seq_b, "--no-semantics", "--save-frames", frames], run_b)
+    _need(rc == 0, f"CLI run B returned {rc}")
+    shapes = [getattr(cv2.imread(os.path.join(frames, f"frame_{i:06d}.png")),
+                      "shape", None) for i in range(k)]
+    top = cv2.imread(os.path.join(frames, "map_topdown.png"))
+    rows_b = len(read_trajectory(os.path.join(run_b, "CameraTrajectory.txt")))
+    want = (cfg.camera.height + 20, cfg.camera.width, 3)
+    print(f"[cli] run B ({k} frames, --no-semantics --save-frames): "
+          f"overlays {sum(sh == want for sh in shapes)} of {want}, map "
+          f"render {None if top is None else top.shape}, trajectory rows "
+          f"{rows_b}, SegNet forwards {sum(forwards_b.values())}")
+    _need(all(sh == want for sh in shapes), f"overlays {shapes}")
+    _need(top is not None, "no map_topdown.png")
+    _need(rows_b == k, f"run B: {rows_b} trajectory rows")
+    _need(sum(forwards_b.values()) == 0, "run B ran SegNet")
+    return {"launches": launches, "frame_ms": 1e3 * median_s,
+            "syncs_per_frame": len(syncs) / n, "peak_mb": peak_mb,
+            "ate": ate, "keyframes": n_kf, "lost": lost}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -971,22 +1266,27 @@ def main() -> int:
     gt, left, right = gt_all[:N_FRAMES], left_all[:N_FRAMES], right_all[
         :N_FRAMES]
     sems = sems_all[:N_FRAMES]
-    k1 = phase_k1(statics, left[0], dev)
-    model = phase_segnet(cfg, left[0], dev)
-    cases, calls = capture_k2_cases(cfg, statics, model, left, right, sems,
-                                    dev)
-    (cases["fusion"], calls["fusion"], ba_case,
-     warmup_stats) = capture_system_cases(cfg, gt, left, right, sems, dev)
-    k2 = phase_k2(cases, calls)
-    slice_launches = phase_slice(cfg, statics, model, gt, left, right, sems,
-                                 dev)
-    system = phase_system(cfg, gt, left, right, sems, dev, ba_case,
-                          warmup_stats)
-    loop = phase_loop(cfg, gt_all, left_all, right_all, sems_all, dev)
-    k2_sim3 = phase_k2({"sim3": loop.pop("sim3_case")},
-                       {"sim3": loop.pop("sim3_calls_per_frame")})
-    k2["cases"]["sim3"] = k2_sim3["cases"]["sim3"]
-    k2["max_abs_err"] = max(k2["max_abs_err"], k2_sim3["max_abs_err"])
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as work:
+        k1 = phase_k1(statics, left[0], dev)
+        model = phase_segnet(cfg, left[0], dev)
+        standard = phase_segnet_standard(cfg, left[0], dev, work)
+        cases, calls = capture_k2_cases(cfg, statics, model, left, right,
+                                        sems, dev)
+        (cases["fusion"], calls["fusion"], ba_case,
+         warmup_stats) = capture_system_cases(cfg, gt, left, right, sems,
+                                              dev)
+        k2 = phase_k2(cases, calls)
+        slice_launches = phase_slice(cfg, statics, model, gt, left, right,
+                                     sems, dev)
+        system = phase_system(cfg, gt, left, right, sems, dev, ba_case,
+                              warmup_stats)
+        loop = phase_loop(cfg, gt_all, left_all, right_all, sems_all, dev)
+        k2_sim3 = phase_k2({"sim3": loop.pop("sim3_case")},
+                           {"sim3": loop.pop("sim3_calls_per_frame")})
+        k2["cases"]["sim3"] = k2_sim3["cases"]["sim3"]
+        k2["max_abs_err"] = max(k2["max_abs_err"], k2_sim3["max_abs_err"])
+        cli_run = phase_cli(cfg, gt, left, right, dev,
+                            standard.pop("caffemodel"), work)
     launches = loop["launches"]
     print(json.dumps({"kernels": [
         {"name": "orb_describe", "route": "cuda",
@@ -994,6 +1294,7 @@ def main() -> int:
          "replaces": "sivo_tpu/ops/pallas_orb.py:218",
          "launches": launches["k1"],
          "launches_per_frame": launches["k1"] / N_LOOP_FRAMES,
+         "launches_cli": cli_run["launches"]["k1"],
          "launches_session_no_loop": system["launches"]["k1"],
          "launches_tracker_slice": slice_launches["k1"], **k1,
          "library_ms": None,
@@ -1003,6 +1304,7 @@ def main() -> int:
          "replaces": "sivo_tpu/ops/pallas_match.py:166",
          "launches": launches["k2"],
          "launches_per_frame": launches["k2"] / N_LOOP_FRAMES,
+         "launches_cli": cli_run["launches"]["k2"],
          "launches_loop_closer": launches["loop_closer"],
          "launches_relocalization": launches["relocalization"],
          "launches_relocalization_kidnap": launches["relocalization_kidnap"],
@@ -1013,7 +1315,9 @@ def main() -> int:
          "library_note": NO_LIBRARY + "PyTorch has no masked top-2 with "
          "first-index ties"},
     ], "system": {k: v for k, v in system.items() if k != "launches"},
-        "loop": {k: v for k, v in loop.items() if k != "launches"}}))
+        "loop": {k: v for k, v in loop.items() if k != "launches"},
+        "segnet_standard": standard,
+        "cli": {k: v for k, v in cli_run.items() if k != "launches"}}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -15,8 +15,9 @@ per-row constant, so the words and parents are the same.
 their device copies. ``train``, the text and npz readers and writers
 are ports; ``bow_vector``, ``l1_score``, ``bow_arrays`` and
 ``l1_score_arrays`` are copies of the JAX package's numpy functions
-(``tests/test_torch_copies.py``). The text reader is the Python parse
-only; the JAX package's optional native parser is not ported.
+(``tests/test_torch_copies.py``). The text reader takes the native
+parser when its library builds (``sivo_tpu_torch.native``), the Python
+parse otherwise, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -26,6 +27,7 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
+from sivo_tpu_torch import native
 from sivo_tpu_torch.ops.kernel_match import popcount_u8
 
 
@@ -265,7 +267,14 @@ def save_text(voc: Vocabulary, path: str) -> None:
 
 def load_text(path: str) -> Vocabulary:
     """DBoW2-format text reader; tolerates ragged trees
-    (ref: TemplatedVocabulary.h:1338 loadFromTextFile)."""
+    (ref: TemplatedVocabulary.h:1338 loadFromTextFile). Parses with the
+    native C++ parser (``sivo_tpu_torch.native``) when its library
+    builds, in Python otherwise: the reference's ~1M-line ORBvoc.txt is
+    its dominant startup cost (System.cc:75-82)."""
+    if native.available():
+        k, depth, parents, _, rows, weights = native.parse_vocabulary_text(
+            path)
+        return _assemble(k, depth, parents.tolist(), rows, weights.tolist())
     with open(path) as f:
         header = f.readline().split()
         k, depth = int(header[0]), int(header[1])

@@ -134,6 +134,7 @@ def build_frame(
     img_right_gray,
     generator: torch.Generator,
     sem_override: tuple | None = None,
+    use_cnn_static: bool | None = None,
     *,
     device: torch.device,
 ) -> Frame:
@@ -144,22 +145,25 @@ def build_frame(
     holds SegNet's weights; ``generator`` draws its dropout masks.
 
     ``sem_override``: optional (classes, confidence, entropy, use_cnn).
-    SegNet always runs at full cost; with ``use_cnn`` False the given
-    rasters replace its posterior (renderer semantics when no trained
-    weights exist). Quantized rasters are accepted: confidence uint8
-    (x1/255), entropy uint8 (x1/32).
+    With ``use_cnn`` False the given rasters replace SegNet's posterior
+    (renderer semantics when no trained weights exist); SegNet still
+    runs at full cost unless ``use_cnn_static`` is False, which says the
+    override holds for the whole run and skips SegNet (the JAX package
+    drops it from the compiled program). Quantized rasters are
+    accepted: confidence uint8 (x1/255), entropy uint8 (x1/32).
     """
     left = _as_tensor(img_left, device, torch.float32)
     if left.dim() == 2:
         left = left[:, :, None].expand(-1, -1, 3)
     right = _as_tensor(img_right_gray, device, torch.float32)
-    with torch.no_grad():
-        classes, confidence, entropy = segnet_mod.segment_image(
-            model, left, generator, statics.mc_samples
-        )
+    if sem_override is None or use_cnn_static is not False:
+        with torch.no_grad():
+            classes, confidence, entropy = segnet_mod.segment_image(
+                model, left, generator, statics.mc_samples
+            )
     if sem_override is not None:
         o_cls, o_conf, o_ent, use_cnn = sem_override
-        if not use_cnn:
+        if not use_cnn or use_cnn_static is False:
             o_conf = _as_tensor(o_conf, device)
             o_ent = _as_tensor(o_ent, device)
             if o_conf.dtype == torch.uint8:

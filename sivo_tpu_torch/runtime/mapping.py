@@ -103,6 +103,9 @@ class LocalMapper:
         self.fuse_searches = 0  # K2 searches run by fusion
         self.points_triangulated = 0  # points minted by triangulation
         self.ba_solves = 0  # local BA solves applied
+        # admissions deferred a frame because the keyframe's host
+        # bookkeeping copy had not landed
+        self.admit_waits = 0
 
     @property
     def queue_len(self) -> int:
@@ -130,6 +133,7 @@ class LocalMapper:
         if (pending is not None and not pending[0].done()
                 and len(self._queue) == 1 and not self._admit_waited):
             self._admit_waited = True
+            self.admit_waits += 1
             return
         self._admit_waited = False
         kf_idx = self._queue.pop(0)

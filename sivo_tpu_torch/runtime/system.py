@@ -52,7 +52,9 @@ class System:
     cfg: SystemConfig
     # the card unless the caller passes a CPU device (the tests do)
     device: Optional[torch.device] = None
-    # SegNet basic state dict; None: segnet.init_params(seed=0)
+    # "basic" or "standard" (ref: the two prototxts)
+    segnet_variant: str = "basic"
+    # that variant's SegNet state dict; None: segnet.init_params(seed=0)
     segnet_params: Optional[dict] = None
     max_keyframes: int = 2048
     max_points: int = 131072
@@ -73,11 +75,13 @@ class System:
         self.device = torch.device(self.device)
         self.statics = frame_mod.make_statics(self.cfg)
         self.model = segnet_mod.SegNet(
+            variant=self.segnet_variant,
             num_classes=self.cfg.semantic.num_classes,
             dtype=segnet_mod.dtype_of(self.cfg.semantic.cnn_dtype))
         if self.segnet_params is None:
             self.segnet_params = segnet_mod.init_params(
-                seed=0, num_classes=self.cfg.semantic.num_classes)
+                seed=0, num_classes=self.cfg.semantic.num_classes,
+                variant=self.segnet_variant)
         self.model.load_state_dict(self.segnet_params)
         self.model = self.model.to(self.device).eval()
         self.map = MapState(

@@ -2,10 +2,32 @@
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 NUM_CLASSES = 15
 STATIC_CLASS_MAX = 8  # Classes.TERRAIN (ref: Frame.cc:190)
+
+# BGR palette for overlay rendering (ref: bayesian_segnet.cpp:91-117).
+CLASS_COLOURS_BGR = np.array(
+    [
+        [128, 64, 128],  # ROAD
+        [232, 35, 244],  # SIDEWALK
+        [69, 69, 69],  # BUILDING
+        [156, 102, 102],  # WALL
+        [153, 153, 153],  # POLE
+        [30, 170, 250],  # TRAFFIC_LIGHT
+        [0, 220, 220],  # TRAFFIC_SIGN
+        [35, 142, 107],  # VEGETATION
+        [152, 251, 152],  # TERRAIN
+        [180, 130, 70],  # SKY
+        [60, 20, 220],  # PERSON
+        [142, 0, 0],  # CAR
+        [70, 0, 0],  # COMMERCIAL_VEHICLE
+        [32, 11, 119],  # BIKE
+    ],
+    dtype=np.uint8,
+)
 
 
 def static_class_mask(classes: torch.Tensor) -> torch.Tensor:

@@ -10,10 +10,18 @@ functions of ``sivo_tpu_torch/place/vocabulary.py`` (``bow_vector``,
 ``l1_score``, ``bow_arrays``, ``l1_score_arrays``: source for source, up
 to the JAX package's ``jnp.ndarray`` annotation of the words)
 and ``sivo_tpu_torch/place/database.py`` (the whole module's source, up
-to its import of the vocabulary module)."""
+to its import of the vocabulary module). The shell's copies are listed
+in ``SHELL_COPIES`` and held file for file here, up to the import lines
+that name the package; their own test files hold them function by
+function and by behaviour: ``io/kitti.py``, ``io/serialization.py`` and
+``viz/replay.py`` (``tests/test_torch_shell.py``), the protobuf wire
+functions of ``models/caffe_io.py`` (``tests/test_torch_caffe_io.py``),
+``native/sivo_native.cpp`` (``tests/test_torch_native.py``) and
+``select/semantic.CLASS_COLOURS_BGR``."""
 
 import dataclasses
 import inspect
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -25,12 +33,16 @@ from sivo_tpu.io import trajectory as j_traj
 from sivo_tpu.place import database as j_db
 from sivo_tpu.place import vocabulary as j_voc
 from sivo_tpu.utils import profiling as j_prof
+from sivo_tpu.select import semantic as j_sem
 from sivo_tpu_torch import config as t_config
 from sivo_tpu_torch.io import synthetic as t_synth
 from sivo_tpu_torch.io import trajectory as t_traj
 from sivo_tpu_torch.place import database as t_db
 from sivo_tpu_torch.place import vocabulary as t_voc
+from sivo_tpu_torch.select import semantic as t_sem
 from sivo_tpu_torch.utils import profiling as t_prof
+
+ROOT = Path(__file__).resolve().parents[1]
 
 CAM_FIELDS = dict(fx=90.0, fy=90.0, cx=64.0, cy=40.0, width=128,
                   height=80, bf=90.0 * 0.54, fps=10.0)
@@ -147,3 +159,43 @@ def test_database_source_equal_up_to_the_import():
         return [line for line in src if line != imp]
 
     assert lines(t_db, "sivo_tpu_torch") == lines(j_db, "sivo_tpu")
+
+
+# port file -> (original, lines that may differ only in the package name)
+SHELL_COPIES = {
+    "io/kitti.py": ("io/kitti.py", ()),
+    "io/serialization.py": ("io/serialization.py", (
+        "from {}.runtime.map_state import KeyFrameData, MapState",)),
+    "viz/replay.py": ("viz/replay.py", (
+        "from {}.select.semantic import CLASS_COLOURS_BGR",)),
+    "native/sivo_native.cpp": ("native/sivo_native.cpp", ()),
+}
+
+
+@pytest.mark.parametrize("port_file", sorted(SHELL_COPIES))
+def test_shell_copy_equal(port_file):
+    original, imports = SHELL_COPIES[port_file]
+    got = (ROOT / "sivo_tpu_torch" / port_file).read_text()
+    want = (ROOT / "sivo_tpu" / original).read_text()
+    for line in imports:
+        assert got.count(line.format("sivo_tpu_torch")) == 1
+        got = got.replace(line.format("sivo_tpu_torch"),
+                          line.format("sivo_tpu"))
+    assert got == want
+
+
+def test_caffe_io_wire_code_equal():
+    """The wire code (``_read_varint`` .. ``save_segnet_params``) is one
+    contiguous block in both files."""
+    def block(path):
+        text = path.read_text()
+        start = text.index("# minimal protobuf wire decoding")
+        return text[start: text.index("def merge_params(")]
+
+    assert (block(ROOT / "sivo_tpu_torch" / "models" / "caffe_io.py")
+            == block(ROOT / "sivo_tpu" / "models" / "caffe_io.py"))
+
+
+def test_class_colours_equal():
+    np.testing.assert_array_equal(t_sem.CLASS_COLOURS_BGR,
+                                  j_sem.CLASS_COLOURS_BGR)

@@ -18,7 +18,8 @@ parameters (``use_ur`` False, window th 7.5 at level +-1, TH_HIGH)
 through ``matching.search_by_sim3``; the SLAM session (``System`` with
 the local mapper) runs on the card against the same run on the CPU, and
 so does the loop closer on tests/test_loopclosing.py's drifted
-out-and-back map, built here with the port's own frontend.
+out-and-back map, built here with the port's own frontend. SegNet's
+standard variant runs on the card in float32 against the CPU.
 """
 
 import dataclasses
@@ -29,6 +30,7 @@ import torch
 
 from sivo_tpu_torch import config as t_config
 from sivo_tpu_torch.io import synthetic
+from sivo_tpu_torch.models import segnet
 from sivo_tpu_torch.geometry import se3
 from sivo_tpu_torch.ops import kernel_match, kernel_orb, matching, orb
 from sivo_tpu_torch.optim import sim3_opt
@@ -460,3 +462,40 @@ def test_loop_closer_on_card_matches_cpu(cuda, monkeypatch):
     assert lc_c.k2_launches == lc_c.k2_searches >= 4
     assert lc_h.k2_launches == 0
     assert lc_c.gba_applied == lc_h.gba_applied
+
+
+def test_segnet_standard_on_card_matches_cpu(cuda):
+    """SegNet standard at 64x128 in float32 with seeded weights (BN
+    statistics off their defaults): the deterministic forward and the MC
+    posterior with the same injected masks, card against CPU. TF32 is
+    off (utils/precision), so the two differ by float32 summation order
+    only."""
+    state = segnet.init_params(0, variant="standard")
+    rng = np.random.default_rng(1)
+    for k in state:
+        if k.endswith((".scale", ".var")):
+            state[k] = torch.from_numpy(
+                rng.uniform(0.5, 1.5, state[k].shape).astype(np.float32))
+        elif k.endswith((".shift", ".mean", ".bias")):
+            state[k] = torch.from_numpy(
+                rng.normal(0, 0.1, state[k].shape).astype(np.float32))
+    img = torch.from_numpy(rng.uniform(0, 255, (64, 128, 3)).astype(
+        np.float32))
+    masks = [torch.from_numpy(rng.uniform(size=sh) < 0.5) for sh in
+             segnet.SegNet("standard").dropout_shapes(64, 128, 3)]
+    out = {}
+    for dev in (cuda, torch.device("cpu")):
+        model = segnet.SegNet("standard", dtype=torch.float32)
+        model.load_state_dict(state)
+        model = model.to(dev).eval()
+        with torch.no_grad():
+            probs = model(img.to(dev))
+            post = segnet.segment_image(model, img.to(dev), None, 3,
+                                        masks=[m.to(dev) for m in masks])
+        out[dev.type] = [probs.cpu(), *(x.cpu() for x in post)]
+    probs_k, cls_k, conf_k, ent_k = out["cuda"]
+    probs_c, cls_c, conf_c, ent_c = out["cpu"]
+    torch.testing.assert_close(probs_k, probs_c, rtol=0, atol=1e-4)
+    assert float((cls_k != cls_c).float().mean()) <= 1e-3
+    torch.testing.assert_close(conf_k, conf_c, rtol=0, atol=1e-4)
+    torch.testing.assert_close(ent_k, ent_c, rtol=0, atol=1e-3)

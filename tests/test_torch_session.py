@@ -110,6 +110,27 @@ def test_pipelined_session_tracks(pipelined):
     assert system.mapper.ba_solves >= 1
     assert not system.mapper.busy
     assert system.map.n_keyframes >= 2 and system.map.n_points > 100
+    # CPU tensors: every keyframe's host copy has landed by the next frame
+    assert system.mapper.admit_waits == 0
+
+
+def test_mapper_defers_an_admission_whose_copy_has_not_landed():
+    """The mapper admits a lone queued keyframe only once its host
+    bookkeeping copy has landed, waiting one frame at most; each wait is
+    counted."""
+
+    class NotLanded:
+        def done(self):
+            return False
+
+    system = System(cfg=make_cfg(), device=CPU, max_keyframes=8,
+                    max_points=1024)
+    tracker, mapper = system.tracker, system.mapper
+    tracker._kf_host_pending[0] = (NotLanded(), 0, 0.0, np.eye(4))
+    mapper.on_keyframe(0)
+    mapper.advance(tracker)
+    assert mapper.admit_waits == 1 and mapper.queue_len == 1
+    assert mapper.busy
 
 
 def test_crisis_mode_retires_synchronously(frames):
