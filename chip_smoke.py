@@ -27,6 +27,34 @@ each raising on failure:
    test scaffolding for want of trained weights: the network runs at
    full cost and tracking sees what ``--no-semantics`` gives it, so
    phase 8 can be held to the JAX package's command line;
+3c. SegNet basic trained on the card: ``tools.train_bench_segnet.
+   train_on_frames`` (the JAX tool's recipe: every 8th frame of the
+   190-frame lap as uint8, half resolution 176x512, gray repeated to
+   three channels, 15 classes, dropout 0.5, 150 Adam steps of batch 2 at
+   lr 1e-3, float32, cuDNN's deterministic algorithms, from Flax's
+   truncated-normal initializer) on ``cuda:0``, once per seed 0-3, on
+   the frames the JAX recipe trained on (``tools/data/
+   cnn40_training_frames.npz``, written by ``tools/cnn40_jax_reference.
+   py``; this machine's OpenCV and numpy render other pixels, and the
+   share that differ is printed). Seed 0: the median ms per step (CUDA
+   events around ``train.train_step``, steps 10-149) beside its bound
+   (3 x the forward convolutions' FLOPs of the batch at 67 TFLOP/s
+   float32), the total seconds, and the device busy share of 5 steps of
+   a copy after warm-up under ``profiling.device_trace``; its
+   ``.caffemodel`` must load back (``state_dict_from_caffemodel``) to
+   the state trained, and it drives run C. Every seed: the loss of the
+   last 10 steps below that of the first 10, and
+   ``segment_image_with_variance`` at 352x1024, MC=3, in cnn_dtype on
+   holdout frame 4 with a pixel accuracy above a predictor of the
+   frame's majority class, a mean entropy above 1e-3 bits and a
+   variance finite and in [0, 1/3]. One seed is one draw of a chaotic
+   recipe, so the gates take medians: the seeds' median accuracy no more
+   than 0.05 below the median of the JAX recipe's eight seeds
+   (``REF_CNN['holdout_acc']``), a floor that must itself be above the
+   majority-class predictor, and their median entropy within 0.10 bits
+   of the JAX seeds' range (``REF_CNN['holdout_entropy']``). Then the
+   same four seeds on this machine's render of the lap, reported beside
+   them with the per-seed gates only;
 4. K2 against its plain version on the inputs of its four searches on
    the main path, each at (2048, 2048): motion, local map and brute
    force kept from their last calls in one run of the slice (the
@@ -94,12 +122,35 @@ each raising on failure:
    twice the JAX runs' worst, keyframes within 3 of the landed runs'
    (the pipelined mapper admits a keyframe once its copy has landed, so
    the count follows that timing; the admissions deferred are printed),
-   K1 launched twice per frame and K2 at least once per tracked frame. Run B: the first 12 frames with ``basic_prototxt
-   - --no-semantics --save-frames DIR`` and no vocabulary: 12 overlays of
-   (352 + 20) x 1024, ``map_topdown.png``, a 12-row trajectory and no
-   SegNet forward.
+   K1 launched twice per frame and K2 at least once per tracked frame.
+   Run C: ``VOC SETTINGS bayesian_segnet_basic_kitti.prototxt
+   trained.caffemodel DIR``, phase 3c's seed-0 network with semantics on,
+   pipelined as run A, its launch counters set to 0 just before it and
+   read just after; each built frame adds on the device its pixels whose
+   class is the renderer's, its entropy and its semantic and extracted
+   keypoints to sums fetched once at the end. Against the JAX command
+   line on the JAX recipe's networks with semantics on and its fetches
+   landed (``tools/cnn40_jax_reference.py``, ``REF_CNN``, one run on
+   each of the eight seeds' networks; the ranges below are over them):
+   "Loaded weights from", one SegNet basic forward per frame, 40 rows,
+   lost no more than theirs, ATE <= 0.10 m and no worse than twice their
+   worst, keyframes within 3 of theirs, K1 twice per frame and K2 at
+   least once per tracked frame, the share of extracted keypoints that
+   pass the semantic gate strictly between 0 and 1 and within 0.10 of
+   theirs, the pixel accuracy of the classes within 0.05 of theirs. Run
+   B: the first 12 frames with ``basic_prototxt - --no-semantics
+   --save-frames DIR`` and no vocabulary: 12 overlays of (352 + 20) x
+   1024, ``map_topdown.png``, a 12-row trajectory and no SegNet forward.
+9. the offline vocabulary tool on the card at a reduced size:
+   ``tools.train_offline_vocab.main(["--frames-per-world", "2",
+   "--depth", "3", "--out", ...])``, its launch counters set to 0 just
+   before it and read just after: K1 launched twice per rendered frame
+   (24), the file read back by ``load_npz``, 1-1,000 words, and one
+   loop-world frame's descriptors give a non-empty BoW vector
+   (``transform``, ``bow_vector``).
 
-Phases 2-6 and 8 run on the first 40 of the 190 rendered frames.
+Phases 2-6 and 8 run on the first 40 of the 190 rendered frames; phase
+3c trains on every 8th of the 190.
 
 Kernel times: ``BATCH`` back-to-back calls captured in a CUDA graph,
 its replay timed between two CUDA events and divided by ``BATCH``; the
@@ -110,14 +161,16 @@ function must move over 3.35 TB/s and its float32 operations over 67
 TFLOP/s, counted from this run's inputs (``k1_bound``, ``k2_bound``).
 
 The second-to-last line of standard output is a JSON object of the
-kernels' launches (``launches_cli``: in phase 8's run A), errors, times
-and bounds; the last line is
+kernels' launches (``launches_cli``: in phase 8's run A;
+``launches_cli_trained``: run C; ``launches_vocab_tool``: phase 9),
+errors, times and bounds; the last line is
 ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
 import contextlib
+import copy
 import dataclasses
 import io
 import json
@@ -139,7 +192,7 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 from sivo_tpu_torch import cli, native  # noqa: E402
 from sivo_tpu_torch.config import SystemConfig  # noqa: E402
 from sivo_tpu_torch.io import synthetic  # noqa: E402
-from sivo_tpu_torch.models import caffe_io, segnet  # noqa: E402
+from sivo_tpu_torch.models import caffe_io, segnet, train  # noqa: E402
 from sivo_tpu_torch.ops import (  # noqa: E402
     image, kernel_match, kernel_orb, matching, orb)
 from sivo_tpu_torch.optim import local_ba  # noqa: E402
@@ -149,7 +202,9 @@ from sivo_tpu_torch.runtime.map_state import MapState  # noqa: E402
 from sivo_tpu_torch.runtime.mapping import LocalMapper  # noqa: E402
 from sivo_tpu_torch.runtime.system import System  # noqa: E402
 from sivo_tpu_torch.runtime.tracking import Tracker  # noqa: E402
-from sivo_tpu_torch.utils import kernels  # noqa: E402
+from sivo_tpu_torch.tools import (  # noqa: E402
+    train_bench_segnet, train_offline_vocab)
+from sivo_tpu_torch.utils import kernels, profiling  # noqa: E402
 from sivo_tpu_torch.utils.transfer import to_device  # noqa: E402
 
 N_FRAMES = 40
@@ -160,6 +215,9 @@ RUNS, BATCH = 30, 50  # kernel timing: median over RUNS of BATCH calls
 PLAIN_RUNS, PLAIN_BATCH = 10, 5
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
+# the frames the JAX recipe trained on (tools/cnn40_jax_reference.py)
+TRAINING_FRAMES = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                               "tools", "data", "cnn40_training_frames.npz")
 BF16_OPS_PER_S = 989e12  # dense, the H100 SXM data sheet
 NO_LIBRARY = "no single PyTorch call computes it: "
 # K2's searches on the main path: case name -> function of ops/matching
@@ -240,7 +298,8 @@ def _bound(nbytes: float, f32_ops: float) -> tuple[float, str]:
 
 
 def phase_card() -> None:
-    """Phase 0: the card's name and power limit as nvidia-smi gives them."""
+    """Phase 0: the card's name and power limit as nvidia-smi gives them,
+    and the versions of the libraries the renderer draws with."""
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
@@ -248,7 +307,8 @@ def phase_card() -> None:
     ).stdout.strip().splitlines()[0]
     print(smi)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
-          f"device {torch.cuda.get_device_name(0)}")
+          f"device {torch.cuda.get_device_name(0)}; the renderer's numpy "
+          f"{np.__version__} and OpenCV {cv2.__version__}")
 
 
 def phase_build() -> None:
@@ -263,7 +323,8 @@ def phase_build() -> None:
 
 def make_scene(cfg: SystemConfig, n_frames: int):
     """The bench loop world (bench.py) and its first ``n_frames`` frames,
-    rendered on the host, with renderer semantics (seed 7)."""
+    rendered on the host, with renderer semantics (seed 7): (ground
+    truth, left, right, semantics, the renderer's class maps)."""
     t0 = time.perf_counter()
     world = synthetic.make_loop_world(cfg.camera, seed=0, outer=16.0,
                                       inner=6.0)
@@ -275,7 +336,7 @@ def make_scene(cfg: SystemConfig, n_frames: int):
     print(f"[scene] rendered {n_frames} frames at "
           f"{cfg.camera.height}x{cfg.camera.width} in "
           f"{time.perf_counter() - t0:.1f} s (host)")
-    return gt, left, right, sems
+    return gt, left, right, sems, cls_maps
 
 
 def k1_inputs(statics, left0, dev):
@@ -444,6 +505,229 @@ def phase_segnet_standard(cfg: SystemConfig, left0, dev, work: str) -> dict:
     _need(ent_max <= 1e-3, f"SegNet standard: entropy {ent_max} bits")
     return {"caffemodel": path, "parameters": n_params, "ms": ms,
             "tflop": flops / 1e12, "bf16_bound_ms": bound_ms}
+
+
+# the JAX package's recipe on the CPU with eight seeds (0: the unchanged
+# tools/train_bench_segnet.py) and its command line on each network with
+# semantics on and its host fetches landed on return (the card's regime):
+# tools/cnn40_jax_reference.py, one entry per seed
+REF_CNN = {"holdout_acc": (0.868, 0.817, 0.877, 0.862, 0.789, 0.817, 0.811,
+                           0.834),
+           "holdout_entropy": (0.8997, 0.564, 0.4824, 0.6366, 0.4649, 0.6855,
+                               0.4595, 0.5324),
+           "ate": (0.0112, 0.0112, 0.0097, 0.0126, 0.0149, 0.0109, 0.0086,
+                   0.0115),
+           "keyframes": (16, 17, 17, 14, 18, 17, 17, 17),
+           "lost": (0, 0, 0, 0, 0, 0, 0, 0),
+           "pixel_acc": (0.84, 0.8416, 0.8827, 0.8736, 0.8277, 0.8433, 0.8372,
+                         0.8603),
+           "entropy": (0.9255, 0.5625, 0.4723, 0.631, 0.4818, 0.7399, 0.4498,
+                       0.5468),
+           "gate_share": (0.9982, 0.9981, 1.0, 0.9987, 0.9911, 0.9942, 0.9946,
+                          0.9996)}
+TRAIN_SEEDS = (0, 1, 2, 3)  # the first seed's network drives run C
+HOLDOUT_ACC_TOL = 0.05
+HOLDOUT_ENTROPY_TOL = 0.10
+TRAIN_TIMED_FROM = 10  # steps before it are warm-up (cuDNN's first calls)
+TRACE_STEPS = 5
+
+
+def _timed_train_step() -> tuple[list, callable]:
+    """A ``train.train_step`` that records CUDA events around each step:
+    (the (start, end) event pairs, the wrapper)."""
+    step, events = train.train_step, []
+
+    def timed(*args, **kwargs):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        loss = step(*args, **kwargs)
+        end.record()
+        events.append((start, end))
+        return loss
+
+    return events, timed
+
+
+def train_busy_share(model, left_u8, cls_all, dev, work) -> dict:
+    """``TRACE_STEPS`` training steps of a copy of the trained model with
+    a fresh Adam (its first step outside the trace), their batches
+    uploaded beforehand, under ``profiling.device_trace``: the device
+    kernels' busy share from the first kernel's start to the last's end
+    (``profiling.kernel_busy``)."""
+    imgs, labels = train_bench_segnet.training_set(left_u8, cls_all)
+    probe = copy.deepcopy(model)
+    opt = torch.optim.Adam(probe.parameters(), lr=train_bench_segnet.LR)
+    weights = torch.from_numpy(train.class_balance_weights(
+        labels, probe.num_classes)).to(dev)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    b = train_bench_segnet.BATCH
+    batches = [(torch.from_numpy(imgs[i:i + b]).to(dev),
+                torch.from_numpy(labels[i:i + b].astype(np.int64)).to(dev))
+               for i in range(0, b * (TRACE_STEPS + 1), b)]
+    train.train_step(probe, opt, *batches[0], weights, gen)
+    torch.cuda.synchronize()
+    trace_dir = os.path.join(work, "train_trace")
+    with profiling.device_trace(trace_dir):
+        for img_b, lab_b in batches[1:]:
+            train.train_step(probe, opt, img_b, lab_b, weights, gen)
+    return profiling.kernel_busy(os.path.join(trace_dir,
+                                              profiling.TRACE_FILE))
+
+
+def reference_frames(shape) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """The frames the JAX recipe trained on (``TRAINING_FRAMES``, written
+    by ``tools/cnn40_jax_reference.py``) as lap arrays of ``shape``
+    (frame i at index i, other rows zero): (indices, left u8, classes)."""
+    z = np.load(TRAINING_FRAMES)
+    left, cls = np.zeros(shape, np.uint8), np.zeros(shape, np.uint8)
+    left[z["index"]], cls[z["index"]] = z["left"], z["cls"]
+    return z["index"], left, cls
+
+
+def train_seeds(name, left_u8, cls_all, dev, cnn_dtype, first=None):
+    """SegNet basic trained on ``left_u8`` / ``cls_all`` once per seed of
+    ``TRAIN_SEEDS`` (``first``: the first seed's (model, losses), already
+    trained), each network's ``train_bench_segnet.holdout`` in
+    ``cnn_dtype``; every seed's loss must fall and its posterior beat a
+    predictor of the holdout frame's majority class, with an entropy
+    above 1e-3 bits and an MC variance in [0, 1/3]."""
+    i = train_bench_segnet.HOLDOUT
+    majority = float(np.bincount(cls_all[i].ravel()).max() / cls_all[i].size)
+    seeds = []
+    for seed in TRAIN_SEEDS:
+        if seed == TRAIN_SEEDS[0] and first is not None:
+            model, losses = first
+        else:
+            model, losses = train_bench_segnet.train_on_frames(
+                left_u8, cls_all, seed=seed, device=dev)
+        losses = losses.cpu().numpy()
+        got = train_bench_segnet.holdout(model, left_u8[i], cls_all[i],
+                                         cnn_dtype)
+        got.update(seed=seed, loss_first10=float(losses[:10].mean()),
+                   loss_last10=float(losses[-10:].mean()))
+        seeds.append(got)
+        print(f"[train] {name}, seed {seed}: loss of the first 10 steps "
+              f"{got['loss_first10']:.4f}, of the last 10 "
+              f"{got['loss_last10']:.4f}; holdout frame {i} at full size, "
+              f"MC={train_bench_segnet.MC_SAMPLES}, {cnn_dtype}: pixel "
+              f"accuracy {got['acc']:.4f}, mean entropy "
+              f"{got['entropy']:.4f} bits, variance in "
+              f"[{got['var_min']:.3g}, {got['var_max']:.3g}]")
+        _need(bool(np.isfinite(losses).all()),
+              f"{name}, seed {seed}: training loss not finite")
+        _need(got["loss_last10"] < got["loss_first10"],
+              f"{name}, seed {seed}: loss did not fall")
+        _need(got["acc"] > majority, f"{name}, seed {seed}: accuracy "
+              f"{got['acc']:.4f}, a majority-class predictor {majority:.4f}")
+        _need(got["entropy"] > 1e-3, f"{name}, seed {seed}: mean entropy "
+              f"{got['entropy']} bits: certain-static")
+        _need(got["var_finite"] and got["var_min"] >= 0.0
+              and got["var_max"] <= 1.0 / 3.0 + 1e-6,
+              f"{name}, seed {seed}: variance in [{got['var_min']}, "
+              f"{got['var_max']}]")
+    acc = statistics.median(g["acc"] for g in seeds)
+    ent = statistics.median(g["entropy"] for g in seeds)
+    print(f"[train] {name}, {len(seeds)} seeds: median holdout accuracy "
+          f"{acc:.4f}, median mean entropy {ent:.4f} bits; a predictor of "
+          f"the holdout frame's majority class scores {majority:.4f}")
+    return {"majority": majority, "acc_median": acc, "entropy_median": ent,
+            "seeds": seeds}
+
+
+def phase_train(cfg: SystemConfig, left_all, cls_all, dev,
+                work: str) -> dict:
+    """Phase 3c: SegNet basic trained on the card by
+    ``train_bench_segnet.train_on_frames`` (the JAX tool's recipe) once
+    per seed of ``TRAIN_SEEDS`` on the frames the JAX recipe trained on,
+    the first seed's run timed per step and its ``.caffemodel`` written
+    and read back; their holdout medians held to the JAX recipe's seeds.
+    Then once per seed on this machine's render of the same frames,
+    reported beside them. Returns the file's path and the numbers."""
+    index, ref_left, ref_cls = reference_frames(np.shape(left_all))
+    card_left = np.asarray(left_all).astype(np.uint8)  # the recipe's type
+    card_cls = np.asarray(cls_all)
+    differ = float(np.mean(card_left[index] != ref_left[index]))
+    cls_differ = float(np.mean(card_cls[index] != ref_cls[index]))
+    print(f"[train] this machine's render of the recipe's {len(index)} "
+          f"frames against the JAX recipe's: gray levels differ at "
+          f"{differ:.4f} of the pixels, classes at {cls_differ:.4f}")
+    cnn_dtype = segnet.dtype_of(cfg.semantic.cnn_dtype)
+    events, timed = _timed_train_step()
+    step = train.train_step
+    train.train_step = timed
+    t0 = time.perf_counter()
+    try:
+        model, losses = train_bench_segnet.train_on_frames(
+            ref_left, ref_cls, seed=TRAIN_SEEDS[0], device=dev)
+        torch.cuda.synchronize()
+    finally:
+        train.train_step = step
+    total_s = time.perf_counter() - t0
+    step_ms = statistics.median([a.elapsed_time(z)
+                                 for a, z in events[TRAIN_TIMED_FROM:]])
+    b = train_bench_segnet.BATCH
+    h, w = ref_left.shape[1] // 2, ref_left.shape[2] // 2
+    flops = 3 * b * segnet.conv_flops("basic", h, w, 1)
+    bound_ms = 1e3 * flops / F32_OPS_PER_S
+    busy = train_busy_share(model, ref_left, ref_cls, dev, work)
+    share = busy["busy_ms"] / busy["window_ms"] if busy["kernels"] else None
+    print(f"[train] SegNet basic, {len(losses)} steps of batch {b} at "
+          f"{h}x{w} float32, seed {TRAIN_SEEDS[0]}: {total_s:.1f} s in "
+          f"all, median {step_ms:.3f} ms per step (CUDA events, steps "
+          f"{TRAIN_TIMED_FROM}-{len(losses) - 1})")
+    print(f"[train] bound: 3 x forward convolutions {flops / 1e12:.3f} TFLOP "
+          f"per step at {F32_OPS_PER_S / 1e12:.0f} TFLOP/s float32 = "
+          f"{bound_ms:.3f} ms, {bound_ms / step_ms:.3f} of it")
+    print(f"[train] profiler over {TRACE_STEPS} steps after warm-up: "
+          f"{busy['kernels']} kernels, device busy {busy['busy_ms']:.3f} ms "
+          f"of a {busy['window_ms']:.3f} ms span"
+          + (f", busy share {share:.3f}" if share is not None else
+             " (no kernel events: busy share not measured)"))
+
+    path = os.path.join(work, "trained.caffemodel")
+    train_bench_segnet.save(model, path)
+    nc = model.num_classes
+    loaded = caffe_io.state_dict_from_caffemodel(
+        path, "basic", segnet.init_params(seed=1, num_classes=nc))
+    state = {k: v.detach().cpu() for k, v in model.state_dict().items()}
+    _need(loaded.keys() == state.keys()
+          and all(torch.equal(loaded[k], state[k]) for k in state),
+          "trained SegNet: the .caffemodel did not load to the state "
+          "trained")
+    i = train_bench_segnet.HOLDOUT
+    acc_f32 = train_bench_segnet.holdout(model, ref_left[i], ref_cls[i])["acc"]
+    print(f"[train] .caffemodel of {os.path.getsize(path) / 1e6:.1f} MB "
+          f"loaded back equal; seed {TRAIN_SEEDS[0]}'s holdout accuracy in "
+          f"float32 {acc_f32:.4f}")
+
+    ref = train_seeds("the JAX recipe's frames", ref_left, ref_cls, dev,
+                      cnn_dtype, first=(model, losses))
+    card = train_seeds("this machine's render", card_left, card_cls, dev,
+                       cnn_dtype)
+    ref_acc = statistics.median(REF_CNN["holdout_acc"])
+    ref_ent = REF_CNN["holdout_entropy"]
+    floor = ref_acc - HOLDOUT_ACC_TOL
+    print(f"[train] JAX recipe, seeds 0-{len(REF_CNN['holdout_acc']) - 1}: "
+          f"holdout accuracy {REF_CNN['holdout_acc']} (median "
+          f"{ref_acc:.4f}), mean entropy {ref_ent}; the gates: median "
+          f"accuracy >= {floor:.4f}, median entropy in "
+          f"[{min(ref_ent) - HOLDOUT_ENTROPY_TOL:.4f}, "
+          f"{max(ref_ent) + HOLDOUT_ENTROPY_TOL:.4f}]")
+    _need(floor > ref["majority"], f"the holdout gate {floor:.4f} passes a "
+          f"majority-class predictor ({ref['majority']:.4f})")
+    _need(ref["acc_median"] >= floor, f"median holdout accuracy "
+          f"{ref['acc_median']:.4f} below {floor:.4f}")
+    _need(min(ref_ent) - HOLDOUT_ENTROPY_TOL <= ref["entropy_median"]
+          <= max(ref_ent) + HOLDOUT_ENTROPY_TOL,
+          f"median holdout entropy {ref['entropy_median']:.4f} bits, "
+          f"expected within {HOLDOUT_ENTROPY_TOL} of the JAX recipe's "
+          f"{ref_ent}")
+    return {"caffemodel": path, "steps": len(losses), "total_s": total_s,
+            "step_ms": step_ms, "step_bound_ms": bound_ms,
+            "busy_share": share, "holdout_acc_f32": acc_f32,
+            "render_differs": differ, "render_classes_differ": cls_differ,
+            "reference_frames": ref, "card_render": card}
 
 
 def run_slice(cfg, statics, model, left, right, sems, dev,
@@ -1162,9 +1446,104 @@ def run_cli(argv: list[str], cwd: str, count_syncs: bool = False):
     return rc, system, text, forwards, syncs
 
 
-def phase_cli(cfg: SystemConfig, gt, left, right, dev, caffemodel: str,
-              work: str) -> dict:
-    """Phase 8: the command line, runs A and B."""
+def run_cli_trained(cfg: SystemConfig, gt, cls_maps, dev, seq: str,
+                    voc_txt: str, caffemodel: str, work: str) -> dict:
+    """Phase 8's run C: the command line on phase 3c's trained SegNet
+    basic with semantics on, its launch counters set to 0 just before it
+    and read just after. Each frame ``build_frame`` returns adds, on the
+    device, its pixels whose class is the renderer's, its entropy and
+    its semantic and extracted keypoints to sums read once at the end."""
+    n = len(gt)
+    cls_dev = torch.from_numpy(np.stack(cls_maps[:n]).astype(np.uint8)).to(
+        dev)
+    sums = {k: torch.zeros((), dtype=torch.float64, device=dev)
+            for k in ("correct", "entropy", "semantic", "valid")}
+    built = [0]
+    build = frame_mod.build_frame
+
+    def summed_build(*args, **kwargs):
+        f = build(*args, **kwargs)
+        i = built[0]
+        built[0] += 1
+        sums["correct"] += (f.classes_raster == cls_dev[i]).sum()
+        sums["entropy"] += f.entropy_raster.sum(dtype=torch.float64)
+        sums["semantic"] += f.semantic.sum()
+        sums["valid"] += f.valid.sum()
+        return f
+
+    run_c = os.path.join(work, "run_c")
+    os.makedirs(run_c)
+    torch.cuda.reset_peak_memory_stats(dev)
+    frame_mod.build_frame = summed_build
+    kernel_orb.LAUNCHES = 0
+    kernel_match.LAUNCHES = 0
+    try:
+        rc, system, text, forwards, syncs = run_cli(
+            [voc_txt, os.path.join(seq, "settings.yaml"),
+             "bayesian_segnet_basic_kitti.prototxt", caffemodel, seq],
+            run_c, count_syncs=True)
+    finally:
+        frame_mod.build_frame = build
+    launches = {"k1": kernel_orb.LAUNCHES, "k2": kernel_match.LAUNCHES}
+    peak_mb = torch.cuda.max_memory_allocated(dev) / 2**20
+    _need(rc == 0 and system is not None, f"CLI run C returned {rc}")
+    _need(f"Loaded weights from {caffemodel}" in text,
+          "CLI run C printed no 'Loaded weights from'")
+    got = {k: float(v) for k, v in sums.items()}
+    pixels = n * cfg.camera.height * cfg.camera.width
+    stats = {"pixel_acc": got["correct"] / pixels,
+             "entropy": got["entropy"] / pixels,
+             "gate_share": got["semantic"] / max(got["valid"], 1.0)}
+    median_s = float(text.split("median tracking time:")[1].split()[0])
+    poses = read_trajectory(os.path.join(run_c, "CameraTrajectory.txt"))
+    with open(os.path.join(run_c, "keyframes_points.txt")) as f:
+        n_kf = int(f.read().split("Final number of keyframes:")[1].split()[0])
+    lost = system.n_lost()
+    ate = synthetic.ate_rmse(poses, gt) if len(poses) == n else float("inf")
+    seg = forwards[id(system.model)]
+    print(f"[cli] run C ({n} frames, trained SegNet {system.segnet_variant} "
+          f"with semantics on, vocabulary): lost {lost}, ATE {ate:.4f} m, "
+          f"keyframes {n_kf}, SegNet forwards {seg}; posterior against the "
+          f"renderer's classes: pixel accuracy {stats['pixel_acc']:.4f}, "
+          f"mean entropy {stats['entropy']:.4f} bits, semantic-gate pass "
+          f"share {stats['gate_share']:.4f} ({got['semantic']:.0f} of "
+          f"{got['valid']:.0f} keypoints); JAX CLI reference (trained, "
+          "landed): " + ", ".join(f"{k} {v}" for k, v in REF_CNN.items()))
+    print(f"[cli] run C: per-frame median {1e3 * median_s:.2f} ms (the "
+          f"CLI's median tracking time); device syncs {len(syncs) / n:.2f} "
+          f"per frame; peak device memory {peak_mb:.1f} MiB; keyframe "
+          f"admissions deferred {system.mapper.admit_waits}")
+    print(f"[cli] run C launches: K1 {launches['k1']} (2 x {n} frames), K2 "
+          f"{launches['k2']}")
+    _need(built[0] == n, f"run C built {built[0]} frames")
+    _need(system.segnet_variant == "basic" and seg == n,
+          f"SegNet {system.segnet_variant} ran {seg} times on {n} frames")
+    _need(len(poses) == n, f"run C: {len(poses)} trajectory rows")
+    _need(lost <= max(REF_CNN["lost"]), f"run C: {lost} frames lost")
+    _need(ate <= min(0.10, 2 * max(REF_CNN["ate"])),
+          f"run C ATE {ate:.4f} m")
+    ref_kf = REF_CNN["keyframes"]
+    _need(min(ref_kf) - 3 <= n_kf <= max(ref_kf) + 3,
+          f"run C: {n_kf} keyframes, expected within 3 of {ref_kf}")
+    _need(launches["k1"] == 2 * n, f"run C: K1 launched {launches['k1']} "
+          "times")
+    _need(launches["k2"] >= n - 1 - lost,
+          f"run C: K2 launched {launches['k2']} times")
+    for key, tol in (("gate_share", 0.10), ("pixel_acc", 0.05)):
+        ref = REF_CNN[key]
+        _need(min(ref) - tol <= stats[key] <= max(ref) + tol,
+              f"run C {key} {stats[key]:.4f}, expected within {tol} of "
+              f"{ref}")
+    _need(0.0 < stats["gate_share"] < 1.0,
+          f"run C gate share {stats['gate_share']}")
+    return {"launches": launches, "frame_ms": 1e3 * median_s,
+            "syncs_per_frame": len(syncs) / n, "peak_mb": peak_mb,
+            "ate": ate, "keyframes": n_kf, "lost": lost, **stats}
+
+
+def phase_cli(cfg: SystemConfig, gt, left, right, cls_maps, dev,
+              caffemodel: str, trained: str, work: str) -> dict:
+    """Phase 8: the command line, runs A, C and B."""
     n = len(left)
     seq = write_kitti(os.path.join(work, "seq"), cfg, left, right)
     voc_txt = os.path.join(work, "voc.txt")
@@ -1224,6 +1603,9 @@ def phase_cli(cfg: SystemConfig, gt, left, right, dev, caffemodel: str,
     _need(launches["k2"] >= n - 1 - lost,
           f"K2 launched {launches['k2']} times")
 
+    run_c = run_cli_trained(cfg, gt, cls_maps, dev, seq, voc_txt, trained,
+                            work)
+
     k = N_CLI_SHORT
     seq_b = write_kitti(os.path.join(work, "seq_b"), cfg, left[:k],
                         right[:k])
@@ -1249,7 +1631,40 @@ def phase_cli(cfg: SystemConfig, gt, left, right, dev, caffemodel: str,
     _need(sum(forwards_b.values()) == 0, "run B ran SegNet")
     return {"launches": launches, "frame_ms": 1e3 * median_s,
             "syncs_per_frame": len(syncs) / n, "peak_mb": peak_mb,
-            "ate": ate, "keyframes": n_kf, "lost": lost}
+            "ate": ate, "keyframes": n_kf, "lost": lost, "run_c": run_c}
+
+
+def phase_vocab_tool(statics, left0, right0, sem0, dev, work: str) -> dict:
+    """Phase 9: the offline vocabulary tool on the card at a reduced size
+    (2 frames per world, depth 3), its launch counters set to 0 just
+    before it and read just after; its file read back, and one loop-world
+    frame's descriptors turned into a BoW vector with it."""
+    out = os.path.join(work, "voc_tool.npz")
+    frames = 2
+    kernel_orb.LAUNCHES = 0
+    kernel_match.LAUNCHES = 0
+    t0 = time.perf_counter()
+    train_offline_vocab.main(["--frames-per-world", str(frames), "--depth",
+                              "3", "--out", out])
+    seconds = time.perf_counter() - t0
+    launches = {"k1": kernel_orb.LAUNCHES, "k2": kernel_match.LAUNCHES}
+    voc = voc_mod.load_npz(out)
+    cls, conf, ent = sem0
+    f = frame_mod.build_frame_nosegnet(statics, left0, right0, cls, conf,
+                                       ent, device=dev)
+    words, _ = voc_mod.transform(voc, f.desc_u8, f.semantic)
+    bow = voc_mod.bow_vector(voc, words.cpu().numpy())
+    n_frames = 6 * frames
+    print(f"[vocab] tool on {n_frames} rendered frames in {seconds:.1f} s: "
+          f"{voc.n_words} words (k={voc.k}, depth {voc.depth}); launches K1 "
+          f"{launches['k1']} (2 x {n_frames} frames), K2 {launches['k2']}; "
+          f"loop-world frame 0: BoW vector of {len(bow)} words")
+    _need(launches["k1"] == 2 * n_frames,
+          f"vocabulary tool: K1 launched {launches['k1']} times")
+    _need(0 < voc.n_words <= 10**3, f"vocabulary of {voc.n_words} words")
+    _need(len(bow) > 0, "empty BoW vector")
+    return {"launches": launches, "seconds": seconds,
+            "words": voc.n_words, "bow_words": len(bow)}
 
 
 def main() -> int:
@@ -1262,7 +1677,8 @@ def main() -> int:
     phase_build()
     cfg = SystemConfig()
     statics = frame_mod.make_statics(cfg)
-    gt_all, left_all, right_all, sems_all = make_scene(cfg, N_LOOP_FRAMES)
+    gt_all, left_all, right_all, sems_all, cls_all = make_scene(
+        cfg, N_LOOP_FRAMES)
     gt, left, right = gt_all[:N_FRAMES], left_all[:N_FRAMES], right_all[
         :N_FRAMES]
     sems = sems_all[:N_FRAMES]
@@ -1270,6 +1686,7 @@ def main() -> int:
         k1 = phase_k1(statics, left[0], dev)
         model = phase_segnet(cfg, left[0], dev)
         standard = phase_segnet_standard(cfg, left[0], dev, work)
+        trained = phase_train(cfg, left_all, cls_all, dev, work)
         cases, calls = capture_k2_cases(cfg, statics, model, left, right,
                                         sems, dev)
         (cases["fusion"], calls["fusion"], ba_case,
@@ -1285,9 +1702,13 @@ def main() -> int:
                            {"sim3": loop.pop("sim3_calls_per_frame")})
         k2["cases"]["sim3"] = k2_sim3["cases"]["sim3"]
         k2["max_abs_err"] = max(k2["max_abs_err"], k2_sim3["max_abs_err"])
-        cli_run = phase_cli(cfg, gt, left, right, dev,
-                            standard.pop("caffemodel"), work)
+        cli_run = phase_cli(cfg, gt, left, right, cls_all, dev,
+                            standard.pop("caffemodel"),
+                            trained.pop("caffemodel"), work)
+        vocab_tool = phase_vocab_tool(statics, left[0], right[0], sems[0],
+                                      dev, work)
     launches = loop["launches"]
+    run_c = cli_run.pop("run_c")
     print(json.dumps({"kernels": [
         {"name": "orb_describe", "route": "cuda",
          "source": "sivo_tpu_torch/csrc/orb_describe.cu",
@@ -1295,6 +1716,8 @@ def main() -> int:
          "launches": launches["k1"],
          "launches_per_frame": launches["k1"] / N_LOOP_FRAMES,
          "launches_cli": cli_run["launches"]["k1"],
+         "launches_cli_trained": run_c["launches"]["k1"],
+         "launches_vocab_tool": vocab_tool["launches"]["k1"],
          "launches_session_no_loop": system["launches"]["k1"],
          "launches_tracker_slice": slice_launches["k1"], **k1,
          "library_ms": None,
@@ -1305,6 +1728,8 @@ def main() -> int:
          "launches": launches["k2"],
          "launches_per_frame": launches["k2"] / N_LOOP_FRAMES,
          "launches_cli": cli_run["launches"]["k2"],
+         "launches_cli_trained": run_c["launches"]["k2"],
+         "launches_vocab_tool": vocab_tool["launches"]["k2"],
          "launches_loop_closer": launches["loop_closer"],
          "launches_relocalization": launches["relocalization"],
          "launches_relocalization_kidnap": launches["relocalization_kidnap"],
@@ -1316,8 +1741,11 @@ def main() -> int:
          "first-index ties"},
     ], "system": {k: v for k, v in system.items() if k != "launches"},
         "loop": {k: v for k, v in loop.items() if k != "launches"},
-        "segnet_standard": standard,
-        "cli": {k: v for k, v in cli_run.items() if k != "launches"}}))
+        "segnet_standard": standard, "train": trained,
+        "cli": {k: v for k, v in cli_run.items() if k != "launches"},
+        "cli_trained": {k: v for k, v in run_c.items() if k != "launches"},
+        "vocab_tool": {k: v for k, v in vocab_tool.items()
+                       if k != "launches"}}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

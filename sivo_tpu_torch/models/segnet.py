@@ -9,7 +9,10 @@ it back, so the port's weights can be written as a ``.caffemodel``
 axis fanned out at the first dropout layer, so the deterministic
 pre-dropout encoder runs once (the JAX package's ``mc_samples`` path).
 Dropout masks come from an explicit ``torch.Generator``, or are passed
-in (tests feed both frameworks the same masks).
+in (tests feed both frameworks the same masks). ``train=True`` is the
+training forward: a batch of images, each with its own dropout masks
+(the JAX package's ``train=True`` forward under a ``vmap`` over the
+batch, ``models/train.py``).
 
 Convolutions run in ``dtype`` (``cfg.semantic.cnn_dtype``, bf16 by
 default): each casts its input to ``dtype``. The Caffe BN layers of the
@@ -171,7 +174,8 @@ class SegNet(nn.Module):
 
     def dropout_shapes(self, height: int, width: int,
                        mc_samples: int) -> list[tuple[int, ...]]:
-        """(S, C, h, w) shape of each dropout layer's mask, in call order."""
+        """(S, C, h, w) shape of each dropout layer's mask, in call order
+        (S: the MC samples, or the batch of the training forward)."""
         n_pools = len(self._encoder)
         shapes = []
         for i in self._enc_drop:
@@ -204,6 +208,7 @@ class SegNet(nn.Module):
         mc_samples: int | None = None,
         generator: torch.Generator | None = None,
         masks: Sequence[torch.Tensor] | None = None,
+        train: bool = False,
     ) -> torch.Tensor:
         """image: (H, W, 3) float, raw 0..255 (the reference feeds raw
         float BGR, no mean subtraction).
@@ -212,9 +217,16 @@ class SegNet(nn.Module):
         returns (H, W, classes) probabilities. ``mc_samples=S``: MC
         dropout with masks drawn from ``generator`` (or taken from
         ``masks``, boolean keep-masks of ``dropout_shapes``), returns
-        (S, H, W, classes).
+        (S, H, W, classes). ``train=True``: ``image`` is a (B, H, W, 3)
+        batch, each image with its own dropout masks (``dropout_shapes(H,
+        W, B)``), nothing tiled; returns (B, H, W, classes).
         """
-        h, w = image.shape[0], image.shape[1]
+        if train and (mc_samples is not None or image.ndim != 4):
+            raise ValueError("train=True takes a (B, H, W, 3) batch and "
+                             "no mc_samples")
+        if not train and image.ndim != 3:
+            raise ValueError("inference takes one (H, W, 3) image")
+        h, w = image.shape[-3], image.shape[-2]
         div = 2 ** len(self._encoder)
         if h % div or w % div:
             raise ValueError(
@@ -225,9 +237,11 @@ class SegNet(nn.Module):
         keep = 1.0 - self.dropout_rate
         drop_i = 0
 
+        stochastic = train or mc_samples is not None
+
         def drop(x):
             nonlocal drop_i
-            if mc_samples is None:
+            if not stochastic:
                 return x
             if masks is not None:
                 m = masks[drop_i]
@@ -237,7 +251,10 @@ class SegNet(nn.Module):
             drop_i += 1
             return torch.where(m, x / keep, torch.zeros_like(x))
 
-        x = image.to(self.dtype).permute(2, 0, 1)[None]
+        if train:
+            x = image.to(self.dtype).permute(0, 3, 1, 2)
+        else:
+            x = image.to(self.dtype).permute(2, 0, 1)[None]
         if self.variant == "basic":
             x = lrn(x)
         pool_idx = []
@@ -257,7 +274,7 @@ class SegNet(nn.Module):
                 x = drop(x)
         logits = self._conv(self._out_name, x)
         probs = torch.softmax(logits.float(), dim=1).permute(0, 2, 3, 1)
-        return probs if mc_samples is not None else probs[0]
+        return probs if stochastic else probs[0]
 
 
 def conv_flops(variant: str, height: int, width: int, mc_samples: int,
@@ -307,6 +324,44 @@ def segment_image(
     return posterior(torch.mean(probs, dim=0))
 
 
+def mc_variance(probs: torch.Tensor, classes: torch.Tensor) -> torch.Tensor:
+    """Per-pixel sample variance (Bessel, /(S-1)) across the MC draws of
+    the softmax probability of the detected class (ref:
+    bayesian_segnet.cpp:205-260 ``computeVariance``). probs: (S, H, W,
+    C); classes: (H, W), the argmax of the MC mean. Returns (H, W)
+    float32."""
+    s = probs.shape[0]
+    sel = torch.gather(
+        probs, -1, classes.long()[None, ..., None].expand(s, -1, -1, 1)
+    )[..., 0]  # (S, H, W)
+    mean = torch.mean(sel, dim=0)
+    return torch.sum((sel - mean[None]) ** 2, dim=0) / float(max(s - 1, 1))
+
+
+def variance_image(variance: torch.Tensor) -> torch.Tensor:
+    """Min-max normalise the variance raster to [0, 1] (ref:
+    bayesian_segnet.cpp:330-344 ``generateVarianceImage``,
+    cv::NORM_MINMAX)."""
+    lo, hi = torch.amin(variance), torch.amax(variance)
+    return (variance - lo) / torch.clamp(hi - lo, min=1e-30)
+
+
+def segment_image_with_variance(
+    model: SegNet,
+    image: torch.Tensor,
+    generator: torch.Generator | None,
+    mc_samples: int = 3,
+    masks: Sequence[torch.Tensor] | None = None,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``segment_image`` plus the MC-variance raster: (classes,
+    confidence, entropy, variance) (ref: bayesian_segnet.hpp:108-170).
+    Off the per-frame path, as the reference's ``computeVariance``."""
+    probs = model(image, mc_samples=mc_samples, generator=generator,
+                  masks=masks)
+    classes, confidence, entropy = posterior(torch.mean(probs, dim=0))
+    return classes, confidence, entropy, mc_variance(probs, classes)
+
+
 _BN_LEAVES = ("scale", "shift", "mean", "var")
 
 
@@ -348,10 +403,10 @@ def flax_from_params(state: dict[str, torch.Tensor]) -> dict[str, Any]:
 
 def init_params(seed: int, num_classes: int = 15,
                 variant: str = "basic") -> dict[str, torch.Tensor]:
-    """Seeded random weights without JAX, made with numpy: kernels of
-    variance 1/fan_in (Flax's LeCun-normal default, here a clipped
-    rather than resampled normal), zero biases, and Flax's BN defaults
-    (scale 1, shift 0, mean 0, var 1)."""
+    """Seeded random weights without JAX, made with numpy: kernels from
+    Flax's LeCun-normal default (a standard normal truncated at 2 sigma,
+    its tails redrawn, scaled to variance 1/fan_in), zero biases, and
+    Flax's BN defaults (scale 1, shift 0, mean 0, var 1)."""
     rng = np.random.default_rng(seed)
     state = {}
     specs = conv_specs(variant, num_classes)
@@ -367,8 +422,13 @@ def init_params(seed: int, num_classes: int = 15,
 
 def _lecun(rng: np.random.Generator, shape: tuple[int, ...]) -> torch.Tensor:
     fan_in = int(np.prod(shape[1:]))
-    # normal clipped at 2 sigma, rescaled by Flax's truncation constant
-    z = np.clip(rng.standard_normal(shape), -2.0, 2.0) / 0.87962566103423978
+    z = rng.standard_normal(shape)
+    out = np.abs(z) > 2.0
+    while out.any():
+        z[out] = rng.standard_normal(int(out.sum()))
+        out = np.abs(z) > 2.0
+    # rescaled by Flax's truncation constant to unit variance
+    z = z / 0.87962566103423978
     return torch.from_numpy((z / np.sqrt(fan_in)).astype(np.float32))
 
 

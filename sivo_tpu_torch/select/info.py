@@ -58,6 +58,74 @@ def stereo_jacobian_pose(fx: float, fy: float, b: float,
     return torch.cat([mono, row2[..., None, :]], dim=-2)
 
 
+def _point_projection(fx: float, fy: float, p: torch.Tensor,
+                      b: float | None = None) -> torch.Tensor:
+    """(..., 3) point -> (..., 2, 3) d(uL, vL)/d(camera point), with the
+    row of uR appended when the baseline ``b`` is given."""
+    X, Y, Z = p[..., 0], p[..., 1], p[..., 2]
+    Z = torch.where(Z.abs() > 1e-12, Z, torch.full_like(Z, 1e-12))
+    iz = 1.0 / Z
+    iz2 = iz * iz
+    zero = torch.zeros_like(X)
+    rows = [torch.stack([fx * iz, zero, -fx * X * iz2], dim=-1),
+            torch.stack([zero, fy * iz, -fy * Y * iz2], dim=-1)]
+    if b is not None:
+        rows.append(torch.stack([fx * iz, zero, -fx * (X - b) * iz2], dim=-1))
+    return torch.stack(rows, dim=-2)
+
+
+def mono_jacobian_point(fx: float, fy: float, p: torch.Tensor,
+                        Ccw: torch.Tensor) -> torch.Tensor:
+    """(..., 3) point + (3, 3) world->camera rotation -> (..., 2, 3)
+    d(projection)/d(world point) (ref: sivo_helpers.cpp:90-113)."""
+    return _point_projection(fx, fy, p) @ Ccw
+
+
+def stereo_jacobian_point(fx: float, fy: float, b: float, p: torch.Tensor,
+                          Ccw: torch.Tensor) -> torch.Tensor:
+    """(..., 3) -> (..., 3, 3) d(uL, vL, uR)/d(world point) (ref:
+    sivo_helpers.cpp:115-136)."""
+    return _point_projection(fx, fy, p, b) @ Ccw
+
+
+def joint_covariance(state_cov: torch.Tensor, jac: torch.Tensor,
+                     meas_noise: torch.Tensor) -> torch.Tensor:
+    """Joint state + measurement covariance (ref:
+    sivo_helpers.cpp:138-180): state_cov (..., 6, 6), jac (..., M, 6),
+    meas_noise (..., M, M) -> (..., 6+M, 6+M)."""
+    m = jac.shape[-2]
+    sj = state_cov @ jac.transpose(-1, -2)  # (..., 6, M)
+    js = jac @ state_cov  # (..., M, 6)
+    meas_cov = jac @ sj + meas_noise  # (..., M, M)
+    batch = torch.broadcast_shapes(state_cov.shape[:-2], jac.shape[:-2],
+                                   meas_noise.shape[:-2])
+    top = torch.cat([state_cov.expand(batch + (6, 6)),
+                     sj.expand(batch + (6, m))], dim=-1)
+    bottom = torch.cat([js.expand(batch + (m, 6)),
+                        meas_cov.expand(batch + (m, m))], dim=-1)
+    return torch.cat([top, bottom], dim=-2)
+
+
+def mutual_information(joint_cov: torch.Tensor) -> torch.Tensor:
+    """MI in bits between the pose state (first 6 dims) and the
+    measurement (the rest): 0.5 log2(det(S) det(M) / det(J)) (ref:
+    sivo_helpers.cpp:182-219), through slogdet."""
+    _, ld_s = torch.linalg.slogdet(joint_cov[..., :6, :6])
+    _, ld_m = torch.linalg.slogdet(joint_cov[..., 6:, 6:])
+    _, ld_j = torch.linalg.slogdet(joint_cov)
+    return 0.5 * (ld_s + ld_m - ld_j) * _LOG2E
+
+
+def kalman_update_stereo(prev_cov: torch.Tensor, jac: torch.Tensor,
+                         meas_noise: torch.Tensor) -> torch.Tensor:
+    """Covariance-only Kalman update (ref: sivo_helpers.cpp:221-240)."""
+    jt = jac.transpose(-1, -2)
+    S = jac @ prev_cov @ jt + meas_noise
+    K = prev_cov @ jt @ torch.linalg.inv(S)
+    eye = torch.eye(6, dtype=prev_cov.dtype, device=prev_cov.device)
+    return (eye - K @ jac) @ prev_cov
+
+
 def stereo_mutual_information(state_cov: torch.Tensor, jac: torch.Tensor,
                               meas_noise: torch.Tensor) -> torch.Tensor:
     """MI in bits = 0.5 * log2(det(H S H^T + N) / det(N))."""

@@ -2,11 +2,34 @@
 
 from __future__ import annotations
 
+import enum
+
 import numpy as np
 import torch
 
+
+class Classes(enum.IntEnum):
+    """ref: include/bayesian_segnet/bayesian_segnet.hpp:67-83."""
+
+    ROAD = 0
+    SIDEWALK = 1
+    BUILDING = 2
+    WALL = 3
+    POLE = 4
+    TRAFFIC_LIGHT = 5
+    TRAFFIC_SIGN = 6
+    VEGETATION = 7
+    TERRAIN = 8
+    SKY = 9
+    PERSON = 10
+    CAR = 11
+    COMMERCIAL_VEHICLE = 12
+    BIKE = 13
+    VOID = 255
+
+
 NUM_CLASSES = 15
-STATIC_CLASS_MAX = 8  # Classes.TERRAIN (ref: Frame.cc:190)
+STATIC_CLASS_MAX = int(Classes.TERRAIN)  # ref: Frame.cc:190
 
 # BGR palette for overlay rendering (ref: bayesian_segnet.cpp:91-117).
 CLASS_COLOURS_BGR = np.array(
@@ -47,3 +70,19 @@ def sample_rasters(
     col = torch.clamp(uv[..., 0].to(torch.int32), 0, w - 1).long()
     row = torch.clamp(uv[..., 1].to(torch.int32), 0, h - 1).long()
     return classes[row, col], confidence[row, col], entropy[row, col]
+
+
+def selection_gate(
+    classes: torch.Tensor,
+    confidence: torch.Tensor,
+    depth: torch.Tensor,
+    th_confidence: float,
+) -> torch.Tensor:
+    """The depth/class/confidence pre-gate of CheckSemantics
+    (ref: LocalMapping.cc:497-507): depth > 0, static class,
+    confidence >= threshold."""
+    return (
+        (depth > 0.0)
+        & static_class_mask(classes)
+        & (confidence >= th_confidence)
+    )

@@ -17,7 +17,9 @@ function and by behaviour: ``io/kitti.py``, ``io/serialization.py`` and
 ``viz/replay.py`` (``tests/test_torch_shell.py``), the protobuf wire
 functions of ``models/caffe_io.py`` (``tests/test_torch_caffe_io.py``),
 ``native/sivo_native.cpp`` (``tests/test_torch_native.py``) and
-``select/semantic.CLASS_COLOURS_BGR``."""
+``select/semantic.CLASS_COLOURS_BGR``. ``select/semantic.Classes`` is
+held member for member, and ``models/train.class_balance_weights``
+source for source."""
 
 import dataclasses
 import inspect
@@ -34,12 +36,14 @@ from sivo_tpu.place import database as j_db
 from sivo_tpu.place import vocabulary as j_voc
 from sivo_tpu.utils import profiling as j_prof
 from sivo_tpu.select import semantic as j_sem
+from sivo_tpu.models import train as j_train
 from sivo_tpu_torch import config as t_config
 from sivo_tpu_torch.io import synthetic as t_synth
 from sivo_tpu_torch.io import trajectory as t_traj
 from sivo_tpu_torch.place import database as t_db
 from sivo_tpu_torch.place import vocabulary as t_voc
 from sivo_tpu_torch.select import semantic as t_sem
+from sivo_tpu_torch.models import train as t_train
 from sivo_tpu_torch.utils import profiling as t_prof
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -199,3 +203,14 @@ def test_caffe_io_wire_code_equal():
 def test_class_colours_equal():
     np.testing.assert_array_equal(t_sem.CLASS_COLOURS_BGR,
                                   j_sem.CLASS_COLOURS_BGR)
+
+
+def test_classes_equal_member_for_member():
+    assert ([(c.name, c.value) for c in t_sem.Classes]
+            == [(c.name, c.value) for c in j_sem.Classes])
+    assert t_sem.STATIC_CLASS_MAX == j_sem.STATIC_CLASS_MAX
+
+
+def test_class_balance_weights_source_equal():
+    assert (inspect.getsource(t_train.class_balance_weights)
+            == inspect.getsource(j_train.class_balance_weights))

@@ -19,7 +19,9 @@ through ``matching.search_by_sim3``; the SLAM session (``System`` with
 the local mapper) runs on the card against the same run on the CPU, and
 so does the loop closer on tests/test_loopclosing.py's drifted
 out-and-back map, built here with the port's own frontend. SegNet's
-standard variant runs on the card in float32 against the CPU.
+standard variant runs on the card in float32 against the CPU, and three
+training steps of SegNet basic (``models/train.train_step``, the same
+injected masks) do too.
 """
 
 import dataclasses
@@ -30,7 +32,7 @@ import torch
 
 from sivo_tpu_torch import config as t_config
 from sivo_tpu_torch.io import synthetic
-from sivo_tpu_torch.models import segnet
+from sivo_tpu_torch.models import segnet, train
 from sivo_tpu_torch.geometry import se3
 from sivo_tpu_torch.ops import kernel_match, kernel_orb, matching, orb
 from sivo_tpu_torch.optim import sim3_opt
@@ -499,3 +501,66 @@ def test_segnet_standard_on_card_matches_cpu(cuda):
     assert float((cls_k != cls_c).float().mean()) <= 1e-3
     torch.testing.assert_close(conf_k, conf_c, rtol=0, atol=1e-4)
     torch.testing.assert_close(ent_k, ent_c, rtol=0, atol=1e-3)
+
+
+def test_training_steps_on_card_match_cpu(cuda):
+    """SegNet basic at 32x64, batch 2, the same batch and injected
+    keep-masks, card against CPU over three Adam steps: the float32 loss
+    at the start (rtol 1e-5); then in float64 at every step the loss
+    (rtol 1e-5) and the gradients (atol 1e-5 x the tensor's max |g|)
+    from the same weights, and the weights after both devices'
+    ``torch.optim.Adam`` take the CPU's gradients (atol 1e-10). Both
+    devices step on the same gradients because Adam's update is +-lr
+    wherever |g| is rounding noise, and a few steps of a loss that jumps
+    about at this learning rate amplify those flips. The
+    gradients are held in float64 because in float32 a pre-activation
+    within rounding of 0 can fall on the other side of a ReLU on the
+    card than on the CPU, which moves a few weights' gradients by
+    percents of the largest for some draws of the weights
+    (``init_params(seed=0)`` at this size)."""
+    rng = np.random.default_rng(2)
+    images = torch.from_numpy(rng.uniform(0, 255, (2, 32, 64, 3)).astype(
+        np.float32))
+    labels = torch.from_numpy(rng.integers(0, 4, (2, 32, 64)))
+    weights = torch.from_numpy(train.class_balance_weights(
+        labels.numpy(), 15))
+    masks = [torch.from_numpy(rng.uniform(size=sh) < 0.5) for sh in
+             segnet.SegNet().dropout_shapes(32, 64, 2)]
+    devs = {"cuda": cuda, "cpu": torch.device("cpu")}
+    loss32, models, opts = {}, {}, {}
+    for name, dev in devs.items():
+        model = segnet.SegNet().to(dev)
+        model.load_state_dict(segnet.init_params(seed=0))
+        with torch.no_grad():
+            loss32[name] = float(train.loss_fn(
+                model, images.to(dev), labels.to(dev), weights.to(dev),
+                masks=[m.to(dev) for m in masks]))
+        model = segnet.SegNet(dtype=torch.float64)
+        model.load_state_dict(segnet.init_params(seed=0))
+        models[name] = model.to(dev, torch.float64)
+        opts[name] = torch.optim.Adam(models[name].parameters(), lr=1e-3)
+    assert loss32["cuda"] == pytest.approx(loss32["cpu"], rel=1e-5)
+    for _ in range(3):
+        losses, grads = {}, {}
+        for name, dev in devs.items():
+            opts[name].zero_grad(set_to_none=True)
+            loss = train.loss_fn(
+                models[name], images.to(dev, torch.float64), labels.to(dev),
+                weights.to(dev, torch.float64),
+                masks=[m.to(dev) for m in masks])
+            loss.backward()
+            losses[name] = float(loss.detach())
+            grads[name] = {k: p.grad.cpu()
+                           for k, p in models[name].named_parameters()}
+        assert losses["cuda"] == pytest.approx(losses["cpu"], rel=1e-5)
+        for k, g in grads["cpu"].items():
+            torch.testing.assert_close(grads["cuda"][k], g, rtol=0,
+                                       atol=1e-5 * float(g.abs().max()))
+        for k, p in models["cuda"].named_parameters():
+            p.grad.copy_(grads["cpu"][k])
+        opts["cuda"].step()
+        opts["cpu"].step()
+        card = dict(models["cuda"].named_parameters())
+        for k, p in models["cpu"].named_parameters():
+            torch.testing.assert_close(card[k].detach().cpu(), p.detach(),
+                                       rtol=0, atol=1e-10)
