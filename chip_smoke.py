@@ -148,9 +148,34 @@ each raising on failure:
    (24), the file read back by ``load_npz``, 1-1,000 words, and one
    loop-world frame's descriptors give a non-empty BoW vector
    (``transform``, ``bow_vector``).
+10. the parallel paths. 10a: ``parallel.multi_sequence.run_sequences``
+   on two sessions interleaved round-robin, "a" on frames 0-19 of the
+   lap and "b" on frames 20-39 (a fresh session), each a ``System`` as
+   phase 6's with SegNet basic running and the renderer's semantics as
+   ``sem_override``, its launch counters set to 0 just before the run and
+   read just after: each session 0 lost, ATE <= 0.10 m on its own
+   ground-truth span, at least 2 keyframes, its ms per pair; K1 launched
+   twice per frame over the 40 and K2 at least once per tracked frame;
+   then session "a" alone, its largest pose difference to the
+   interleaved run reported. 10b: ``parallel.sharded_ba.sharded_bundle_adjustment`` on phase 7's
+   dense GBA problem, 30 iterations at world size 1 over NCCL in this
+   process (its λ starts at 1e-4, so 10 do not converge on this problem;
+   their gap is printed), against the port's dense
+   ``global_bundle_adjustment`` (10 iterations, as the loop closer runs
+   it) on the same problem with tests/test_sharded_ba.py's bounds: each
+   keyframe's largest ``log(T_dense^-1 T_sharded)`` component <= 2e-3,
+   the median point difference < 0.1 m; the solve's wall ms and the
+   all-reduce bytes per iteration. 10c: the same problem on 2 gloo ranks
+   spawned on this card, given as a ``.pt`` file, its valid points
+   spread over the shards round-robin first (the partition drops a
+   shard's observations beyond its slots): >= 95% of the valid
+   observations kept, 10b's tolerances. 10d: ``entry.dryrun_multichip``
+   over this machine's cards (NCCL) and ``entry()``'s forward, whose
+   posterior must be finite.
 
 Phases 2-6 and 8 run on the first 40 of the 190 rendered frames; phase
-3c trains on every 8th of the 190.
+3c trains on every 8th of the 190; phase 7 keeps its dense GBA problem
+for 10b and 10c.
 
 Kernel times: ``BATCH`` back-to-back calls captured in a CUDA graph,
 its replay timed between two CUDA events and divided by ``BATCH``; the
@@ -162,8 +187,9 @@ TFLOP/s, counted from this run's inputs (``k1_bound``, ``k2_bound``).
 
 The second-to-last line of standard output is a JSON object of the
 kernels' launches (``launches_cli``: in phase 8's run A;
-``launches_cli_trained``: run C; ``launches_vocab_tool``: phase 9),
-errors, times and bounds; the last line is
+``launches_cli_trained``: run C; ``launches_vocab_tool``: phase 9;
+``launches_multi_sequence``: phase 10a), errors, times and bounds, and
+phase 10's figures (``parallel``); the last line is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -189,13 +215,15 @@ import torch
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
-from sivo_tpu_torch import cli, native  # noqa: E402
+from sivo_tpu_torch import cli, entry, native  # noqa: E402
+from sivo_tpu_torch.geometry import se3  # noqa: E402
 from sivo_tpu_torch.config import SystemConfig  # noqa: E402
 from sivo_tpu_torch.io import synthetic  # noqa: E402
 from sivo_tpu_torch.models import caffe_io, segnet, train  # noqa: E402
 from sivo_tpu_torch.ops import (  # noqa: E402
     image, kernel_match, kernel_orb, matching, orb)
 from sivo_tpu_torch.optim import local_ba  # noqa: E402
+from sivo_tpu_torch.parallel import multi_sequence, sharded_ba  # noqa: E402
 from sivo_tpu_torch.place import vocabulary as voc_mod  # noqa: E402
 from sivo_tpu_torch.runtime import frame as frame_mod  # noqa: E402
 from sivo_tpu_torch.runtime.map_state import MapState  # noqa: E402
@@ -1185,9 +1213,10 @@ def run_loop_session(cfg, left, right, sems, dev, voc):
     milliseconds); keeps a copy of K2's inputs at the last call of the
     loop closer's guided ``search_by_sim3``. Returns (system, per-frame
     ms, launches, sync warnings, K2 sim3 case, sim3 searches per
-    frame)."""
+    frame, the dense global BA's problem and camera)."""
     top2 = kernel_match.masked_hamming_top2
     by_sim3 = matching.search_by_sim3
+    gba = local_ba.global_bundle_adjustment
     kept, in_sim3 = {}, [False]
 
     def record(a_u8, b_u8, row, col, use_ur=True):
@@ -1204,8 +1233,13 @@ def run_loop_session(cfg, left, right, sems, dev, voc):
         finally:
             in_sim3[0] = False
 
+    def kept_gba(prob, cam, iterations=10):
+        kept["gba"] = (local_ba.BAProblem(*(t.clone() for t in prob)), cam)
+        return gba(prob, cam, iterations=iterations)
+
     kernel_match.masked_hamming_top2 = record
     matching.search_by_sim3 = tagged_by_sim3
+    local_ba.global_bundle_adjustment = kept_gba
     kernel_orb.LAUNCHES = 0
     kernel_match.LAUNCHES = 0
     try:
@@ -1214,10 +1248,12 @@ def run_loop_session(cfg, left, right, sems, dev, voc):
     finally:
         kernel_match.masked_hamming_top2 = top2
         matching.search_by_sim3 = by_sim3
+        local_ba.global_bundle_adjustment = gba
     launches = {"k1": kernel_orb.LAUNCHES, "k2": kernel_match.LAUNCHES}
     _need("k2" in kept, "phase 7 ran no guided search_by_sim3")
+    _need("gba" in kept, "phase 7 ran no dense global BA")
     return (system, frame_ms, launches, syncs, kept["k2"],
-            kept["calls"] / len(left))
+            kept["calls"] / len(left), kept["gba"])
 
 
 def kidnap(system, gt, left, right, sems) -> dict:
@@ -1268,8 +1304,8 @@ def phase_loop(cfg, gt, left, right, sems, dev) -> dict:
     voc = voc_mod.load_npz(VOCABULARY)
     n = len(left)
     torch.cuda.reset_peak_memory_stats(dev)
-    (system, frame_ms, launches, syncs, sim3_case,
-     sim3_calls) = run_loop_session(cfg, left, right, sems, dev, voc)
+    (system, frame_ms, launches, syncs, sim3_case, sim3_calls,
+     gba_case) = run_loop_session(cfg, left, right, sems, dev, voc)
     peak_mb = torch.cuda.max_memory_allocated(dev) / 2**20
     lc, m = system.loop_closer, system.map
     raw = np.stack([r.pose for r in system.tracker.trajectory])
@@ -1355,7 +1391,8 @@ def phase_loop(cfg, gt, left, right, sems, dev) -> dict:
             "keyframes": stats["keyframes"],
             "relocalizations": system.reloc_successes,
             "kidnap_error_m": kid["error_m"],
-            "sim3_case": sim3_case, "sim3_calls_per_frame": sim3_calls}
+            "sim3_case": sim3_case, "sim3_calls_per_frame": sim3_calls,
+            "gba_case": gba_case}
 
 
 # the JAX package's command line with --no-semantics on the same 40-frame
@@ -1667,6 +1704,267 @@ def phase_vocab_tool(statics, left0, right0, sem0, dev, work: str) -> dict:
             "words": voc.n_words, "bow_words": len(bow)}
 
 
+# phase 10: two sessions of the lap interleaved (frames of each)
+MULTI_SEQUENCES = {"a": (0, 20), "b": (20, 40)}
+# The sharded solver's LM iterations, gated against the dense GBA's 10:
+# its λ starts at 1e-4 whatever the Hessian's scale (the JAX package's
+# solver), which on phase 7's problem (diagonal ~3e8) takes ~10
+# rejected steps before one lands, so 10 iterations leave it 3e-3-8e-2
+# from the dense solution (PERF.md §6) and ~20 converge. The gap
+# after the loop closer's 10 is printed too.
+SHARDED_ITERATIONS = 30
+GBA_ITERATIONS = 10  # the loop closer's dense GBA
+# tests/test_sharded_ba.py's bounds between the sharded and the
+# single-device solvers: each keyframe's largest |log(T_dense^-1
+# T_sharded)| component, the median point difference (m)
+SHARDED_POSE_TOL, SHARDED_POINT_TOL = 2e-3, 0.1
+SHARDED_RANKS = 2  # 10c: gloo ranks on one card
+SHARDED_KEPT_MIN = 0.95  # share of the valid observations partitioned
+
+
+def phase_multi_sequence(cfg, gt_all, left_all, right_all, sems_all,
+                         dev) -> dict:
+    """Phase 10a: ``run_sequences`` on two sessions of the lap, "a" on
+    frames 0-19 and "b" on frames 20-39 (a fresh session), interleaved
+    round-robin, each ``System`` as phase 6's; the launch counters set to
+    0 just before and read just after. Each ``track_stereo`` is timed on
+    the host clock between device syncs, as phase 6 times it."""
+    frame_ms = {name: [] for name in MULTI_SEQUENCES}
+
+    def new_system(name):
+        return System(cfg=cfg, device=dev, max_keyframes=256,
+                      max_points=32768)
+
+    def make_system(name):
+        system = new_system(name)
+        track = system.track_stereo
+
+        def timed(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            try:
+                return track(*args, **kwargs)
+            finally:
+                torch.cuda.synchronize()
+                frame_ms[name].append(1e3 * (time.perf_counter() - t0))
+
+        system.track_stereo = timed
+        return system
+
+    seqs = {name: [(left_all[i], right_all[i], (i - a) * 0.1,
+                    (*sems_all[i], False)) for i in range(a, b)]
+            for name, (a, b) in MULTI_SEQUENCES.items()}
+    n = sum(len(seq) for seq in seqs.values())
+    kernel_orb.LAUNCHES = 0
+    kernel_match.LAUNCHES = 0
+    t0 = time.perf_counter()
+    results = multi_sequence.run_sequences(make_system, seqs)
+    wall_s = time.perf_counter() - t0
+    launches = {"k1": kernel_orb.LAUNCHES, "k2": kernel_match.LAUNCHES}
+    sessions = {}
+    for name, (a, b) in MULTI_SEQUENCES.items():
+        r = results[name]
+        _need(r.poses.shape == (b - a, 4, 4) and np.isfinite(r.poses).all(),
+              f"session {name}: poses {r.poses.shape}")
+        sessions[name] = {
+            "frames": r.n_frames, "lost": r.n_lost,
+            "ate": synthetic.ate_rmse(r.poses, gt_all[a:b]),
+            "keyframes": r.n_keyframes, "points": r.n_points,
+            "ms_per_pair": statistics.median(frame_ms[name])}
+        s = sessions[name]
+        print(f"[multi] session {name} (frames {a}-{b - 1}): lost "
+              f"{s['lost']}, ATE {s['ate']:.4f} m, keyframes "
+              f"{s['keyframes']}, map points {s['points']}; track_stereo "
+              f"median {s['ms_per_pair']:.2f} ms per pair")
+    print(f"[multi] {n} frames of two interleaved sessions in {wall_s:.1f} "
+          f"s; launches: K1 {launches['k1']} (2 x {n} frames), K2 "
+          f"{launches['k2']}")
+    for name, s in sessions.items():
+        _need(s["frames"] == len(seqs[name]), f"session {name}: "
+              f"{s['frames']} frames")
+        _need(s["lost"] == 0, f"session {name}: {s['lost']} frames lost")
+        _need(s["ate"] <= 0.10, f"session {name}: ATE {s['ate']:.4f} m")
+        _need(s["keyframes"] >= 2, f"session {name}: {s['keyframes']} "
+              "keyframes")
+    _need(launches["k1"] == 2 * n, f"K1 launched {launches['k1']} times")
+    tracked = n - len(seqs)  # each session's first frame initializes
+    _need(launches["k2"] >= tracked, f"K2 launched {launches['k2']} times "
+          f"over {tracked} tracked frames")
+    # cross-talk on the card, reported: session "a" again with no session
+    # beside it (its mapper admits keyframes as their copies land, so a
+    # difference may also come from timing)
+    alone = multi_sequence.run_sequences(new_system, {"a": seqs["a"]})["a"]
+    a, b = MULTI_SEQUENCES["a"]
+    alone_diff = float(np.abs(alone.poses - results["a"].poses).max())
+    print(f"[multi] session a alone: lost {alone.n_lost}, ATE "
+          f"{synthetic.ate_rmse(alone.poses, gt_all[a:b]):.4f} m, keyframes "
+          f"{alone.n_keyframes}, map points {alone.n_points}; largest pose "
+          f"entry difference to its interleaved run {alone_diff:.3g}")
+    return {"launches": launches, "wall_s": wall_s, "sessions": sessions,
+            "a_alone_pose_diff": alone_diff}
+
+
+def _pose_diffs(a: torch.Tensor, b: torch.Tensor,
+                valid: torch.Tensor) -> np.ndarray:
+    """Each valid keyframe's largest |log(a_k^-1 b_k)| component."""
+    a, b = a[valid].double().cpu(), b[valid].double().cpu()
+    return se3.log(torch.linalg.inv(a) @ b).abs().amax(dim=-1).numpy()
+
+
+def _point_diff(a: torch.Tensor, b: torch.Tensor,
+                valid: torch.Tensor) -> float:
+    """Median distance between the valid points of a and b (m)."""
+    return float(torch.linalg.norm((a - b)[valid].double().cpu(),
+                                   dim=-1).median())
+
+
+def _held_to_dense(name: str, res, dense, prob) -> dict:
+    pose = _pose_diffs(dense.kf_pose, res.kf_pose.to(dense.kf_pose.device),
+                       prob.kf_valid)
+    point = _point_diff(dense.pt_pos, res.pt_pos.to(dense.pt_pos.device),
+                        prob.pt_valid)
+    print(f"[sharded] {name} against the dense GBA: largest pose log "
+          f"component {pose.max():.3g} (<= {SHARDED_POSE_TOL}), median "
+          f"point difference {point:.3g} m (< {SHARDED_POINT_TOL}); chi2 "
+          f"{float(res.chi2):.6g} against {float(dense.chi2):.6g}")
+    _need(pose.max() <= SHARDED_POSE_TOL, f"{name}: pose differs from the "
+          f"dense GBA by {pose.max():.3g}")
+    _need(point < SHARDED_POINT_TOL, f"{name}: points differ from the dense "
+          f"GBA by {point:.3g} m (median)")
+    return {"pose_max": float(pose.max()), "point_median_m": point,
+            "chi2": float(res.chi2)}
+
+
+def phase_sharded_ba(gba_case, work: str) -> dict:
+    """Phases 10b and 10c on phase 7's dense GBA problem, each held to
+    the port's dense ``global_bundle_adjustment`` on the same problem.
+    10b: ``sharded_bundle_adjustment`` at world size 1 over NCCL in this
+    process (wall ms of the solve, median of 3 after one warm-up; the
+    all-reduce calls and bytes counted). 10c: two gloo ranks on this
+    card, spawned with the problem as a ``.pt`` file in ``work``, its
+    valid points first spread over the shards round-robin (the partition
+    drops a shard's observations beyond its share of the slots) and the
+    spread undone on the result. The sharded solves take
+    ``SHARDED_ITERATIONS``, the dense one the loop closer's 10."""
+    prob, cam = gba_case
+    dev = prob.kf_pose.device
+    n_obs = int(prob.obs_valid.sum())
+    dense = local_ba.global_bundle_adjustment(prob, cam,
+                                              iterations=GBA_ITERATIONS)
+    print(f"[sharded] phase 7's GBA problem: caps (keyframes, points, "
+          f"observations) {tuple(prob.kf_pose.shape[:1])} "
+          f"{tuple(prob.pt_pos.shape[:1])} {tuple(prob.obs_kf.shape)}, "
+          f"valid {int(prob.kf_valid.sum())}, {int(prob.pt_valid.sum())}, "
+          f"{n_obs}")
+
+    # 10b: world size 1, NCCL
+    reduce_bytes = []
+    all_reduce = torch.distributed.all_reduce
+
+    def counted(tensor, *args, **kwargs):
+        reduce_bytes.append(tensor.numel() * tensor.element_size())
+        return all_reduce(tensor, *args, **kwargs)
+
+    torch.distributed.init_process_group(
+        "nccl", init_method="file://" + os.path.join(work, "nccl_rdv"),
+        world_size=1, rank=0, device_id=dev)
+    try:
+        part = sharded_ba.partition_problem(prob, 1)
+
+        def solve(iterations=SHARDED_ITERATIONS):
+            return sharded_ba.sharded_bundle_adjustment(
+                part, cam, iterations=iterations)
+
+        res = solve(GBA_ITERATIONS)
+        gap = _pose_diffs(dense.kf_pose, res.kf_pose, prob.kf_valid).max()
+        print(f"[sharded] 10b after {GBA_ITERATIONS} iterations (reported, "
+              f"not gated): largest pose log component {gap:.3g} from the "
+              "dense GBA")
+        solve()
+        torch.distributed.all_reduce = counted
+        try:
+            res = solve()
+        finally:
+            torch.distributed.all_reduce = all_reduce
+        times = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            solve()
+            torch.cuda.synchronize()
+            times.append(1e3 * (time.perf_counter() - t0))
+    finally:
+        torch.distributed.destroy_process_group()
+    # chi2 at the start and the end, then per iteration the system and
+    # the new chi2
+    per_iter = reduce_bytes[1:-1]
+    _need(len(per_iter) == 2 * SHARDED_ITERATIONS,
+          f"{len(reduce_bytes)} all-reduce calls")
+    iter_bytes = sum(per_iter) / SHARDED_ITERATIONS
+    one = {"iterations": SHARDED_ITERATIONS,
+           "solve_ms": statistics.median(times),
+           "pose_max_after_10": float(gap),
+           "allreduce_calls": len(reduce_bytes),
+           "allreduce_bytes_per_iteration": iter_bytes,
+           **_held_to_dense("10b world size 1 (NCCL)", res, dense, prob)}
+    print(f"[sharded] 10b: {SHARDED_ITERATIONS} iterations in "
+          f"{one['solve_ms']:.2f} ms (median of 3, wall); "
+          f"{len(reduce_bytes)} all-reduce calls, {iter_bytes:.0f} bytes "
+          "per iteration")
+
+    # 10c: two gloo ranks on this card
+    n = SHARDED_RANKS
+    P = prob.pt_pos.shape[0]
+    j = torch.arange(P, device=dev)
+    dest = (j % n) * (P // n) + j // n  # point j's slot after spreading
+    spread = prob._replace(
+        pt_pos=torch.empty_like(prob.pt_pos).index_copy_(0, dest,
+                                                         prob.pt_pos),
+        pt_valid=torch.empty_like(prob.pt_valid).index_copy_(
+            0, dest, prob.pt_valid),
+        obs_pt=dest[prob.obs_pt.long()].to(prob.obs_pt.dtype))
+    part = sharded_ba.partition_problem(spread, n)
+    kept = int(part.obs_valid.sum()) / n_obs
+    t0 = time.perf_counter()
+    outs = sharded_ba.solve_on_ranks(part, cam, n, work, backend="gloo",
+                                     devices=[str(dev)] * n,
+                                     iterations=SHARDED_ITERATIONS)
+    spawn_s = time.perf_counter() - t0
+    res = outs[0]._replace(pt_pos=outs[0].pt_pos.to(dev)[dest])
+    two = {"ranks": n, "kept": kept, "spawn_and_solve_s": spawn_s,
+           **_held_to_dense(f"10c {n} gloo ranks", res, dense, prob)}
+    print(f"[sharded] 10c: {n} gloo ranks on {dev}: {kept:.4f} of the "
+          f"{n_obs} valid observations kept; spawn and solve {spawn_s:.1f} "
+          "s (wall)")
+    _need(kept >= SHARDED_KEPT_MIN, f"10c kept {kept:.4f} of the "
+          "observations")
+    for r, other in enumerate(outs[1:], 1):
+        _need(torch.allclose(other.kf_pose, outs[0].kf_pose, rtol=1e-5,
+                             atol=1e-6), f"10c rank {r}'s poses differ")
+    return {"world_size_1": one, "gloo_ranks": two,
+            "dense_chi2": float(dense.chi2)}
+
+
+def phase_entry() -> dict:
+    """Phase 10d: ``entry.dryrun_multichip`` over this machine's cards
+    (NCCL ranks), and ``entry()``'s forward at 352x1024 on the card."""
+    n = torch.cuda.device_count()
+    t0 = time.perf_counter()
+    entry.dryrun_multichip(n)
+    dry_s = time.perf_counter() - t0
+    fn, args = entry.entry()
+    classes, confidence, ent = fn(*args)
+    torch.cuda.synchronize()
+    _need(classes.shape == (entry.HEIGHT, entry.WIDTH),
+          f"entry classes {tuple(classes.shape)}")
+    _need(bool(torch.isfinite(confidence).all() & torch.isfinite(ent).all()),
+          "entry posterior not finite")
+    print(f"[entry] dryrun_multichip({n}) in {dry_s:.1f} s; entry() "
+          f"posterior finite, classes {tuple(classes.shape)}, mean entropy "
+          f"{float(ent.mean()):.4f} bits")
+    return {"dryrun_ranks": n, "dryrun_s": dry_s}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1707,6 +2005,16 @@ def main() -> int:
                             trained.pop("caffemodel"), work)
         vocab_tool = phase_vocab_tool(statics, left[0], right[0], sems[0],
                                       dev, work)
+        t10 = time.perf_counter()
+        multi = phase_multi_sequence(cfg, gt_all, left_all, right_all,
+                                     sems_all, dev)
+        sharded = phase_sharded_ba(loop.pop("gba_case"), work)
+        parallel = {"multi_sequence": multi.pop("sessions"),
+                    "multi_sequence_wall_s": multi["wall_s"],
+                    "a_alone_pose_diff": multi["a_alone_pose_diff"],
+                    "sharded_ba": sharded, "entry": phase_entry()}
+        parallel["phase_s"] = time.perf_counter() - t10
+        print(f"[parallel] phase 10 in {parallel['phase_s']:.1f} s")
     launches = loop["launches"]
     run_c = cli_run.pop("run_c")
     print(json.dumps({"kernels": [
@@ -1719,7 +2027,8 @@ def main() -> int:
          "launches_cli_trained": run_c["launches"]["k1"],
          "launches_vocab_tool": vocab_tool["launches"]["k1"],
          "launches_session_no_loop": system["launches"]["k1"],
-         "launches_tracker_slice": slice_launches["k1"], **k1,
+         "launches_tracker_slice": slice_launches["k1"],
+         "launches_multi_sequence": multi["launches"]["k1"], **k1,
          "library_ms": None,
          "library_note": NO_LIBRARY + "PyTorch has no oriented BRIEF"},
         {"name": "hamming_top2", "route": "cuda",
@@ -1735,7 +2044,8 @@ def main() -> int:
          "launches_relocalization_kidnap": launches["relocalization_kidnap"],
          "launches_session_no_loop": system["launches"]["k2"],
          "launches_mapper_fusion": system["launches"]["k2_mapper"],
-         "launches_tracker_slice": slice_launches["k2"], **k2,
+         "launches_tracker_slice": slice_launches["k2"],
+         "launches_multi_sequence": multi["launches"]["k2"], **k2,
          "library_ms": None,
          "library_note": NO_LIBRARY + "PyTorch has no masked top-2 with "
          "first-index ties"},
@@ -1745,7 +2055,8 @@ def main() -> int:
         "cli": {k: v for k, v in cli_run.items() if k != "launches"},
         "cli_trained": {k: v for k, v in run_c.items() if k != "launches"},
         "vocab_tool": {k: v for k, v in vocab_tool.items()
-                       if k != "launches"}}))
+                       if k != "launches"},
+        "parallel": parallel}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

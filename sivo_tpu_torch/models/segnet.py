@@ -27,6 +27,7 @@ from typing import Any, Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn as nn
 import torch.nn.functional as F
 
@@ -317,11 +318,23 @@ def segment_image(
     generator: torch.Generator | None,
     mc_samples: int = 3,
     masks: Sequence[torch.Tensor] | None = None,
+    group: Any = None,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Full MC-dropout segmentation: (classes, confidence, entropy)."""
+    """Full MC-dropout segmentation: (classes, confidence, entropy).
+
+    With a ``torch.distributed`` process ``group`` (the counterpart of
+    the JAX package's ``sample_axis``), each rank draws its own
+    ``mc_samples`` and their means are averaged over the group (an
+    ``all_reduce`` SUM divided by its size) before the posterior, so the
+    samples split over the ranks; every rank returns the same rasters.
+    """
     probs = model(image, mc_samples=mc_samples, generator=generator,
                   masks=masks)
-    return posterior(torch.mean(probs, dim=0))
+    mean_probs = torch.mean(probs, dim=0)
+    if group is not None:
+        dist.all_reduce(mean_probs, op=dist.ReduceOp.SUM, group=group)
+        mean_probs = mean_probs / dist.get_world_size(group)
+    return posterior(mean_probs)
 
 
 def mc_variance(probs: torch.Tensor, classes: torch.Tensor) -> torch.Tensor:

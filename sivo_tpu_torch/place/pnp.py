@@ -39,7 +39,12 @@ def _kabsch(src: torch.Tensor, dst: torch.Tensor) -> torch.Tensor:
     cs = src.mean(dim=-2, keepdim=True)
     cd = dst.mean(dim=-2, keepdim=True)
     H = (src - cs).transpose(-1, -2) @ (dst - cd)
-    U, _, Vt = torch.linalg.svd(H)
+    # a degenerate hypothesis gives a non-finite H, on which the CPU SVD
+    # raises (the JAX package's returns NaN): it is solved as zeros and
+    # its pose set to NaN, which the callers' finite checks discard
+    finite = torch.isfinite(H).all(dim=-1).all(dim=-1)
+    U, _, Vt = torch.linalg.svd(
+        torch.where(finite[..., None, None], H, torch.zeros_like(H)))
     V, Ut = Vt.transpose(-1, -2), U.transpose(-1, -2)
     det = torch.linalg.det(V @ Ut)
     D = torch.zeros_like(H)
@@ -52,7 +57,8 @@ def _kabsch(src: torch.Tensor, dst: torch.Tensor) -> torch.Tensor:
     T[..., :3, :3] = R
     T[..., :3, 3] = t
     T[..., 3, 3].fill_(1.0)
-    return T
+    return torch.where(finite[..., None, None], T,
+                       torch.full_like(T, float("nan")))
 
 
 def _solve_ls(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

@@ -19,7 +19,8 @@ functions of ``models/caffe_io.py`` (``tests/test_torch_caffe_io.py``),
 ``native/sivo_native.cpp`` (``tests/test_torch_native.py``) and
 ``select/semantic.CLASS_COLOURS_BGR``. ``select/semantic.Classes`` is
 held member for member, and ``models/train.class_balance_weights``
-source for source."""
+source for source. ``parallel/multi_sequence.py`` is held file for file
+(it imports nothing of either package)."""
 
 import dataclasses
 import inspect
@@ -214,3 +215,9 @@ def test_classes_equal_member_for_member():
 def test_class_balance_weights_source_equal():
     assert (inspect.getsource(t_train.class_balance_weights)
             == inspect.getsource(j_train.class_balance_weights))
+
+
+def test_multi_sequence_copy_equal():
+    got = (ROOT / "sivo_tpu_torch" / "parallel" / "multi_sequence.py")
+    want = ROOT / "sivo_tpu" / "parallel" / "multi_sequence.py"
+    assert got.read_text() == want.read_text()

@@ -188,6 +188,24 @@ def test_epnp_matches_jax():
     np.testing.assert_allclose(Tt[good], Tj[good], atol=5e-2)
 
 
+def test_kabsch_discards_a_non_finite_hypothesis():
+    """A hypothesis whose camera points are not finite (EPnP on a
+    degenerate set) comes out NaN, as in the JAX package, instead of
+    raising in the CPU SVD; the others are solved as before."""
+    rng = np.random.default_rng(4)
+    src = rng.uniform(-2, 2, (2, 6, 3)).astype(np.float32)
+    T = np.asarray(j_se3.exp(jnp.asarray([0.1, -0.2, 0.3, 0.05, -0.1, 0.2],
+                                         jnp.float32)))
+    dst = src @ T[:3, :3].T + T[:3, 3]
+    dst[1, 2] = np.nan
+    got = t_pnp._kabsch(_t(src), _t(dst)).numpy()
+    want = np.asarray(j_pnp._kabsch(jnp.asarray(src), jnp.asarray(dst)))
+    np.testing.assert_allclose(got[0], want[0], rtol=0, atol=1e-5)
+    np.testing.assert_allclose(got[0], T, rtol=0, atol=1e-5)
+    assert not np.isfinite(want[1]).all()
+    assert np.isnan(got[1]).all()
+
+
 def test_ransac_pnp_finds_the_pose():
     T_true, _, obs = _pose_problem(8)
     g = torch.Generator().manual_seed(0)

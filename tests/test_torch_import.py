@@ -62,7 +62,12 @@ def test_every_module_is_found():
                  "sivo_tpu_torch.native",
                  "sivo_tpu_torch.models.train",
                  "sivo_tpu_torch.tools.train_bench_segnet",
-                 "sivo_tpu_torch.tools.train_offline_vocab"):
+                 "sivo_tpu_torch.tools.train_offline_vocab",
+                 "sivo_tpu_torch.parallel",
+                 "sivo_tpu_torch.parallel.multi_sequence",
+                 "sivo_tpu_torch.parallel.sharded_ba",
+                 "sivo_tpu_torch.parallel.ranks",
+                 "sivo_tpu_torch.entry"):
         assert name in mods
     assert len(_port_sources()) > len(mods)
 
