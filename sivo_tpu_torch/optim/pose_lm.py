@@ -9,6 +9,14 @@ the inverse of the final Gauss-Newton Hessian over inliers. The JAX
 ``lax.cond`` on the round index is a Python ``if``. All math is float32
 with TF32 off; the 6x6 solves use the ``_ex`` forms, which report
 singularity in a tensor instead of synchronising to raise.
+
+On the card the ~2,000 small launches of one solve cost its host ~190
+ms (NVIDIA H100 80GB HBM3, 700.00 W; PERF.md §6), so ``optimize_pose``
+captures the solve once per input shape,
+camera and schedule as a CUDA graph and replays it: the inputs are
+copied into the graph's own tensors and the outputs cloned out, and the
+result is bit for bit that of ``optimize_pose_eager``, which CPU
+tensors run directly.
 """
 
 from __future__ import annotations
@@ -134,6 +142,48 @@ def _lm_iterations(T0, obs, cam, active, use_huber: bool, n_iters: int):
 
 def optimize_pose(T_init, obs: PoseObservations, cam: CameraParams,
                   rounds: int = 4, iterations: int = 10) -> PoseResult:
+    """``optimize_pose_eager``, replayed from a CUDA graph for CUDA
+    tensors."""
+    if not T_init.is_cuda:
+        return optimize_pose_eager(T_init, obs, cam, rounds, iterations)
+    key = (T_init.device, T_init.dtype,
+           tuple((t.shape, t.dtype) for t in obs), cam, rounds, iterations)
+    if key not in _GRAPHS:
+        _GRAPHS[key] = _capture(T_init, obs, cam, rounds, iterations)
+    graph, T_in, obs_in, out = _GRAPHS[key]
+    T_in.copy_(T_init)
+    for dst, src in zip(obs_in, obs):
+        dst.copy_(src)
+    graph.replay()
+    return PoseResult(*(t.clone() for t in out))
+
+
+# (device, input shapes and types, camera, rounds, iterations) ->
+# (graph, its input tensors, its output tensors)
+_GRAPHS: dict = {}
+
+
+def _capture(T_init, obs: PoseObservations, cam: CameraParams,
+             rounds: int, iterations: int):
+    """Capture ``optimize_pose_eager`` on copies of the inputs, after one
+    eager run on a side stream (it creates the library handles and
+    workspaces the graph then reuses)."""
+    T_in = T_init.clone()
+    obs_in = PoseObservations(*(t.clone() for t in obs))
+    side = torch.cuda.Stream(T_init.device)
+    side.wait_stream(torch.cuda.current_stream(T_init.device))
+    with torch.cuda.stream(side):
+        optimize_pose_eager(T_in, obs_in, cam, rounds, iterations)
+    torch.cuda.current_stream(T_init.device).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+        out = optimize_pose_eager(T_in, obs_in, cam, rounds, iterations)
+    return graph, T_in, obs_in, out
+
+
+def optimize_pose_eager(T_init, obs: PoseObservations, cam: CameraParams,
+                        rounds: int = 4, iterations: int = 10
+                        ) -> PoseResult:
     """Full PoseOptimization: each round runs LM from the current
     estimate over the current inliers (Huber in rounds 1-2), then
     re-classifies every valid observation by chi2."""

@@ -96,6 +96,7 @@ class System:
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(42)
         self.crisis_frames = 0
+        self.compactions = 0
         self.n_resets = 0
         self._prev_tracked = 0.0
         self.reloc_attempts = 0
@@ -293,6 +294,7 @@ class System:
                 # an in-flight GBA holds pre-compaction ids
                 self.loop_closer.finish_gba(self.tracker)
             compact_mod.compact_map(self)
+        self.compactions += 1
 
     def activate_localization_mode(self) -> None:
         """Track against the frozen map without inserting keyframes

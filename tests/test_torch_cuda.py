@@ -18,7 +18,9 @@ parameters (``use_ur`` False, window th 7.5 at level +-1, TH_HIGH)
 through ``matching.search_by_sim3``; the SLAM session (``System`` with
 the local mapper) runs on the card against the same run on the CPU, and
 so does the loop closer on tests/test_loopclosing.py's drifted
-out-and-back map, built here with the port's own frontend. SegNet's
+out-and-back map, built here with the port's own frontend. The pose
+LM's CUDA graph replays bit for bit what the eager solve computes, on
+two problems through one captured graph. SegNet's
 standard variant runs on the card in float32 against the CPU, and three
 training steps of SegNet basic (``models/train.train_step``, the same
 injected masks) do too.
@@ -35,7 +37,7 @@ from sivo_tpu_torch.io import synthetic
 from sivo_tpu_torch.models import segnet, train
 from sivo_tpu_torch.geometry import se3
 from sivo_tpu_torch.ops import kernel_match, kernel_orb, matching, orb
-from sivo_tpu_torch.optim import sim3_opt
+from sivo_tpu_torch.optim import pose_lm, sim3_opt
 from sivo_tpu_torch.place import vocabulary as t_voc
 from sivo_tpu_torch.runtime import device_map, kf_store
 from sivo_tpu_torch.runtime import frame as t_frame
@@ -564,3 +566,44 @@ def test_training_steps_on_card_match_cpu(cuda):
         for k, p in models["cpu"].named_parameters():
             torch.testing.assert_close(card[k].detach().cpu(), p.detach(),
                                        rtol=0, atol=1e-10)
+
+
+def _pose_problem(rng, n, cuda):
+    """Points 4-30 m ahead of a perturbed camera, stereo-projected with
+    0.7 px noise and 10% gross outliers."""
+    cam = make_camera(t_config.SystemConfig())
+    T = se3.exp(torch.from_numpy(rng.normal(0, 0.05, 6).astype(np.float32)))
+    pc = np.stack([rng.uniform(-8, 8, n), rng.uniform(-2, 2, n),
+                   rng.uniform(4, 30, n)], 1).astype(np.float32)
+    pw = (torch.from_numpy(pc) - T[:3, 3]) @ T[:3, :3]
+    uvr = np.stack([cam.fx * pc[:, 0] / pc[:, 2] + cam.cx,
+                    cam.fy * pc[:, 1] / pc[:, 2] + cam.cy,
+                    (cam.fx * pc[:, 0] - cam.bf) / pc[:, 2] + cam.cx], 1)
+    uvr += rng.normal(0, 0.7, uvr.shape)
+    out = rng.uniform(size=n) < 0.1
+    uvr[out, :2] += rng.uniform(-40, 40, (out.sum(), 2))
+    obs = pose_lm.PoseObservations(
+        points=pw.to(cuda),
+        uvr=torch.from_numpy(uvr.astype(np.float32)).to(cuda),
+        sigma2=torch.from_numpy(
+            (1.44 ** rng.integers(0, 8, n)).astype(np.float32)).to(cuda),
+        is_stereo=torch.from_numpy(rng.uniform(size=n) < 0.7).to(cuda),
+        valid=torch.from_numpy(rng.uniform(size=n) < 0.95).to(cuda))
+    T0 = T.clone()
+    T0[:3, 3] += torch.tensor([0.05, -0.03, 0.1])
+    return T0.to(cuda), obs, cam
+
+
+def test_pose_lm_graph_equals_eager(cuda):
+    rng = np.random.default_rng(11)
+    before = len(pose_lm._GRAPHS)
+    for _ in range(2):
+        T0, obs, cam = _pose_problem(rng, 300, cuda)
+        for rounds, iterations in ((4, 10), (2, 5)):
+            got = pose_lm.optimize_pose(T0, obs, cam, rounds, iterations)
+            want = pose_lm.optimize_pose_eager(T0, obs, cam, rounds,
+                                               iterations)
+            for name, g, w in zip(got._fields, got, want):
+                assert torch.equal(g, w), name
+    # one graph per schedule, replayed for the second problem
+    assert len(pose_lm._GRAPHS) == before + 2
