@@ -6,7 +6,8 @@ CUDA card and ``nvcc`` (it builds the kernels from ``sivo_tpu_torch/csrc``
 on first use) and imports nothing of JAX or of the JAX package. Phases,
 each raising on failure:
 
-0. the card: ``torch.cuda.is_available()``, nvidia-smi name + power limit;
+0. the card: ``torch.cuda.is_available()``, nvidia-smi name + power limit
+   (printed again before the last two lines);
 1. build the kernels (K1 orb_describe, K2 hamming_top2), one nvcc each;
 2. K1 against its plain PyTorch version on one rendered 352x1024 frame:
    the float canvases and the 2048 keypoints the port selects on it
@@ -187,20 +188,33 @@ each raising on failure:
    ``track_frame(pipeline=True)`` on every frame (the next frame built
    between its dispatch and its retire), ``flush``, ``frame_poses``,
    ``save_trajectory_kitti`` and ``shutdown``, the launch counters set
-   to 0 just before and read just after. Against the JAX package's CPU
-   ``System`` on the same frames (``tools/dumbbell_jax_reference.py``,
-   ``REF_DUMBBELL``: a run with its fetches landed by the next frame,
-   the card's regime, and one as the CPU times it): loops closed at
-   least the JAX runs' fewest, every dispatched GBA applied, where a JAX
-   run took the PCG branch the same branch and bucket at that closure,
-   lost frames no more than theirs + 2, keyframes within 15% of theirs,
-   a compaction where they compacted, ATE no worse than twice their
-   worst, a 434-line trajectory, the loop closer's and relocalization's
-   K2 launches equal to the searches they counted, K1 twice per frame.
-   Reports the per-frame median and p90 ms, syncs per frame, peak device
-   memory, the ``lc.*`` and ``map.*`` stage rows, the essential graph's
-   host ms per closure and each GBA's wall time from dispatch to
-   application. Then phase 4's ``local_map_full`` case: K2's inputs at
+   to 0 just before and read just after. Against CPU runs on the same
+   frames (``REF_DUMBBELL``, each naming its descriptor path: the JAX
+   package's ``System`` on its CPU XLA path, ``tools/
+   dumbbell_jax_reference.py``, a run with its fetches landed by the
+   next frame, the card's regime, and two as the CPU times them; and
+   like for like, with K1's semantics, ``tools/dumbbell_port_parity.py``:
+   the JAX package with K1 interpreted and its fetches landed, and the
+   port on the CPU with its own RANSAC draws and with the JAX
+   package's): loops closed at least the runs' fewest, every dispatched
+   GBA applied, where a run took the PCG branch the same branch and
+   bucket at that closure, lost frames no more than theirs + 2,
+   keyframes within 15% of theirs, a compaction where they compacted,
+   ATE no worse than twice the worst K1-semantics run (and never looser
+   than twice the worst XLA-path run), a 434-line trajectory, the loop
+   closer's and relocalization's K2 launches equal to the searches they
+   counted, K1 twice per frame. Reports the largest aligned centre
+   error and its frame, the per-frame median and p90 ms, syncs per
+   frame, peak device memory, the ``lc.*`` and ``map.*`` stage rows,
+   the essential graph's host ms per closure and each GBA's wall time
+   from dispatch to application. Then a compaction forced on the
+   flushed session (``System._compact()``): every live point's
+   position, descriptor and observations (host and device mirror) and
+   every live keyframe's pose and stored descriptors bit-equal under
+   the remap, ``frame_poses()`` unchanged, and 10 more lap frames
+   tracked on the compacted map, none lost, K1 twice per frame and K2
+   launched (its counters set to 0 just before and read just after).
+   Then phase 4's ``local_map_full`` case: K2's inputs at
    the run's last local-map search of tracking on a full candidate list,
    or, where no refresh filled the list (dumbbell434 fills at most ~750
    of its 2048 ids, in the JAX package too), the last frame's local-map
@@ -377,7 +391,7 @@ def _bound(nbytes: float, f32_ops: float) -> tuple[float, str]:
     return 1e3 * t_ops, "operations"
 
 
-def phase_card() -> None:
+def phase_card() -> str:
     """Phase 0: the card's name and power limit as nvidia-smi gives them,
     and the versions of the libraries the renderer draws with."""
     smi = subprocess.run(
@@ -389,6 +403,7 @@ def phase_card() -> None:
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)}; the renderer's numpy "
           f"{np.__version__} and OpenCV {cv2.__version__}")
+    return smi
 
 
 def phase_build() -> None:
@@ -1989,8 +2004,12 @@ def phase_sharded_ba(gba_case, work: str) -> dict:
     card, spawned with the problem as a ``.pt`` file in ``work``, its
     valid points first spread over the shards round-robin (the partition
     drops a shard's observations beyond its share of the slots) and the
-    spread undone on the result. The sharded solves take
-    ``SHARDED_ITERATIONS``, the dense one the loop closer's 10."""
+    spread undone on the result; in float64, held to the dense GBA in
+    float64 (``DENSE_F64_ITERATIONS``): in float32 the ranks' partial
+    sums can move the solve along the problem's flat directions past the
+    bound at an equal chi2 (PERF.md §6). The sharded solves take
+    ``SHARDED_ITERATIONS``, the dense float32 one the loop closer's
+    10."""
     prob, cam = gba_case
     dev = prob.kf_pose.device
     n_obs = int(prob.obs_valid.sum())
@@ -2057,14 +2076,17 @@ def phase_sharded_ba(gba_case, work: str) -> dict:
           f"{len(reduce_bytes)} all-reduce calls, {iter_bytes:.0f} bytes "
           "per iteration")
 
-    # 10c: two gloo ranks on this card
+    # 10c: two gloo ranks on this card, in float64
+    prob64 = _f64(prob)
+    dense64 = local_ba.global_bundle_adjustment(
+        prob64, cam, iterations=DENSE_F64_ITERATIONS)
     n = SHARDED_RANKS
     P = prob.pt_pos.shape[0]
     j = torch.arange(P, device=dev)
     dest = (j % n) * (P // n) + j // n  # point j's slot after spreading
-    spread = prob._replace(
-        pt_pos=torch.empty_like(prob.pt_pos).index_copy_(0, dest,
-                                                         prob.pt_pos),
+    spread = prob64._replace(
+        pt_pos=torch.empty_like(prob64.pt_pos).index_copy_(0, dest,
+                                                           prob64.pt_pos),
         pt_valid=torch.empty_like(prob.pt_valid).index_copy_(
             0, dest, prob.pt_valid),
         obs_pt=dest[prob.obs_pt.long()].to(prob.obs_pt.dtype))
@@ -2077,7 +2099,8 @@ def phase_sharded_ba(gba_case, work: str) -> dict:
     spawn_s = time.perf_counter() - t0
     res = outs[0]._replace(pt_pos=outs[0].pt_pos.to(dev)[dest])
     two = {"ranks": n, "kept": kept, "spawn_and_solve_s": spawn_s,
-           **_held_to_dense(f"10c {n} gloo ranks", res, dense, prob)}
+           **_held_to_dense(f"10c {n} gloo ranks in float64", res, dense64,
+                            prob)}
     print(f"[sharded] 10c: {n} gloo ranks on {dev}: {kept:.4f} of the "
           f"{n_obs} valid observations kept; spawn and solve {spawn_s:.1f} "
           "s (wall)")
@@ -2087,7 +2110,8 @@ def phase_sharded_ba(gba_case, work: str) -> dict:
         _need(torch.allclose(other.kf_pose, outs[0].kf_pose, rtol=1e-5,
                              atol=1e-6), f"10c rank {r}'s poses differ")
     return {"world_size_1": one, "gloo_ranks": two,
-            "dense_chi2": float(dense.chi2)}
+            "dense_chi2": float(dense.chi2),
+            "dense_f64_chi2": float(dense64.chi2)}
 
 
 def phase_entry() -> dict:
@@ -2115,14 +2139,54 @@ def phase_entry() -> dict:
 # lap revisits two zones; the trajectory is exactly periodic, so the
 # lap's renders serve every frame (frame i shows render i % lap)
 DUMBBELL_FRAMES = 434  # figure8_lap_frames() (404) + 30 re-driving the start
-# the JAX package's CPU System on the same frames
-# (tools/dumbbell_jax_reference.py): runs with its fetches landed by the
-# next frame (the card's regime) and two as the CPU times them; events
-# are (frame, keyframe, candidate, correction m); ATE over frame_poses()
-# and over the frames not lost
+# CPU runs on the same frames; events are (frame, keyframe, candidate,
+# correction m); ATE over frame_poses() and over the frames not lost.
+# "descriptors" names the descriptor path: "xla" is the JAX package's
+# CPU XLA path (float canvases; tools/dumbbell_jax_reference.py: runs
+# with its fetches landed by the next frame, the card's regime, and two
+# as the CPU times them), "k1" K1's semantics (u8 canvases), as the
+# port's kernel computes them (tools/dumbbell_port_parity.py: the JAX
+# package with K1 interpreted and its fetches landed, and the port on
+# the CPU, with its own RANSAC draws and with the JAX package's). The
+# ATE gate is twice the worst "k1" run (ATE_LIKE_FOR_LIKE), never looser
+# than twice the worst "xla" run
 REF_DUMBBELL = {
+    "k1_jax": {
+        "descriptors": "k1", "draws": "jax.random",
+        "loops": 2, "events": [(250, 73, 28, 0.742), (409, 113, 0, 0.521)],
+        "gba": [{"path": "pcg", "bucket": [256, 32768, 98304],
+                 "frame": 250, "applied_frame": 260},
+                {"path": "pcg", "bucket": [256, 32768, 98304],
+                 "frame": 409, "applied_frame": 419}],
+        "gba_applied": 2, "compactions": 0, "relocalizations": 1,
+        "crisis_frames": 35, "lost": 1, "keyframes": 120, "ate": 0.0855,
+        "ate_tracked": 0.0847, "err_max": 0.2643, "err_max_frame": 263,
+        "local_cap_binds": 0},
+    "k1_port": {
+        "descriptors": "k1", "draws": "torch.Generator",
+        "loops": 2, "events": [(246, 75, 30, 0.351), (421, 119, 2, 0.203)],
+        "gba": [{"path": "pcg", "bucket": [256, 32768, 98304],
+                 "frame": 246, "applied_frame": 256},
+                {"path": "pcg", "bucket": [256, 32768, 98304],
+                 "frame": 421, "applied_frame": 429}],
+        "gba_applied": 2, "compactions": 0, "relocalizations": 1,
+        "crisis_frames": 40, "lost": 1, "keyframes": 125, "ate": 0.1869,
+        "ate_tracked": 0.1866, "err_max": 1.1264, "err_max_frame": 398,
+        "local_cap_binds": 0},
+    "k1_port_jax_draws": {
+        "descriptors": "k1", "draws": "jax.random",
+        "loops": 2, "events": [(249, 78, 34, 0.291), (407, 125, 0, 1.373)],
+        "gba": [{"path": "pcg", "bucket": [256, 32768, 98304],
+                 "frame": 249, "applied_frame": 257},
+                {"path": "pcg", "bucket": [256, 32768, 98304],
+                 "frame": 407, "applied_frame": 417}],
+        "gba_applied": 2, "compactions": 0, "relocalizations": 0,
+        "crisis_frames": 44, "lost": 0, "keyframes": 135, "ate": 0.3007,
+        "ate_tracked": 0.3007, "err_max": 1.3001, "err_max_frame": 248,
+        "local_cap_binds": 0},
     # two runs made the same decisions frame for frame
     "landed": {
+        "descriptors": "xla",
         "loops": 2, "events": [(249, 81, 31, 0.338), (408, 126, 0, 1.418)],
         "gba": [{"path": "pcg", "bucket": [256, 32768, 98304],
                  "frame": 249, "applied_frame": 258},
@@ -2132,6 +2196,7 @@ REF_DUMBBELL = {
         "crisis_frames": 30, "lost": 2, "keyframes": 137, "ate": 0.4521,
         "ate_tracked": 0.4506, "local_cap_binds": 0},
     "cpu": {
+        "descriptors": "xla",
         "loops": 2, "events": [(286, 69, 26, 0.409), (420, 105, 0, 0.596)],
         "gba": [{"path": "pcg", "bucket": [256, 32768, 98304],
                  "frame": 286, "applied_frame": 322},
@@ -2141,6 +2206,7 @@ REF_DUMBBELL = {
         "crisis_frames": 103, "lost": 5, "keyframes": 116, "ate": 0.5046,
         "ate_tracked": None, "local_cap_binds": 0},
     "cpu2": {
+        "descriptors": "xla",
         "loops": 2, "events": [(286, 69, 26, 0.409), (423, 106, 0, 0.312)],
         "gba": [{"path": "pcg", "bucket": [256, 32768, 98304],
                  "frame": 286, "applied_frame": 322},
@@ -2150,7 +2216,18 @@ REF_DUMBBELL = {
         "crisis_frames": 103, "lost": 3, "keyframes": 115, "ate": 0.5225,
         "ate_tracked": 0.5186, "local_cap_binds": 0},
 }
+ATE_LIKE_FOR_LIKE = min(
+    2 * max(r["ate"] for r in REF_DUMBBELL.values()
+            if r["descriptors"] == "k1"),
+    2 * max(r["ate"] for r in REF_DUMBBELL.values()
+            if r["descriptors"] == "xla"))
 PCG_ITERATIONS = 10  # the loop closer's
+# compaction forced after phase 11's lap: lap frames tracked after it,
+# and how far a frame's pose may move where its record is re-expressed
+# through the nearest live ancestor of its culled reference keyframe
+# (float32 rounding of rel @ Tk @ inv(Ta); bit-equal otherwise)
+COMPACT_NEXT_FRAMES = 10
+COMPACT_POSE_ATOL = 1e-4
 # The PCG GBA held to the dense GBA: both in float64 on the card, each
 # to its optimum: the dense for 60 iterations (the same poses as 120 on
 # phase 7's problems), PCG until a block of PCG_BLOCK steps moves no
@@ -2170,11 +2247,14 @@ PCG_SHUFFLES = 4
 # tests/test_torch_gba.py's PCG tolerances (the port against the JAX
 # package, float32, on a 6-keyframe problem): poses (matrix entries), the
 # 99th percentile and the largest point difference (m), the final chi2
-# (relative); inlier masks equal. The card's float64 solve is held to the
-# CPU's float64 solve within them. On a map-sized problem float32's
-# summation order alone moves a solve farther (PERF.md §6), so the
-# card's float32 solve is held to the CPU's within the larger of these
-# and twice the CPU's own float32 noise; the chi2 bound is one-sided
+# (relative); inlier masks equal. On a map-sized problem the summation
+# order alone moves a 10-step solve farther, in float32 and in float64
+# alike (on the first PCG problem of a CPU run of dumbbell434, float64
+# solves on 8 orders of the observations lie up to 5.3e-4 from the
+# original order's in a pose entry: tools/gba190_pcg_study.py), so the
+# card's solve in each precision is held to the CPU's within the larger
+# of these and twice the CPU's own noise in that precision (in float64
+# measured only where these are missed); the chi2 bound is one-sided
 # (the card's final chi2 no higher than the CPU's by more)
 PCG_TOLS = {"pose": 1e-4, "point_p99": 1e-3, "point_max": 2e-2,
             "chi2_rel": 1e-6}
@@ -2405,6 +2485,7 @@ def phase_endurance(cfg, dev, render: PooledRender) -> dict:
     tracked = np.setdiff1d(np.arange(n), lost_at)
     ate_tracked = synthetic.ate_rmse(system.frame_poses()[tracked],
                                      gt[tracked])
+    err = centre_errors(system.frame_poses(), gt)
     full_list = {"searches": kept["k2_calls"],
                  "longest_refresh": kept.get("list_max", 0)}
     if not kept["k2_calls"]:
@@ -2440,6 +2521,7 @@ def phase_endurance(cfg, dev, render: PooledRender) -> dict:
            "points": m.n_points,
            "points_live": int(m.pt_valid[: m.n_points].sum()),
            "ate": stats["ate"], "ate_tracked": ate_tracked,
+           "err_max": float(err.max()), "err_max_frame": int(err.argmax()),
            "lost_frames": lost_at,
            "local_cap_binds": system.tracker.local_cap_binds,
            "frame_ms_median": statistics.median(frame_ms),
@@ -2465,15 +2547,18 @@ def phase_endurance(cfg, dev, render: PooledRender) -> dict:
           f"({out['keyframes_live']} live), map points {m.n_points} "
           f"({out['points_live']} live), ATE {stats['ate']:.4f} m "
           f"({ate_tracked:.4f} m over the frames not lost; lost frames "
-          f"{lost_at}), local cap binds {out['local_cap_binds']}, loop "
+          f"{lost_at}; the largest aligned centre error "
+          f"{out['err_max']:.4f} m at frame {out['err_max_frame']}), local "
+          f"cap binds {out['local_cap_binds']}, loop "
           f"closer cap binds {lc.cap_binds}")
-    print("[endurance] JAX CPU reference: " + "; ".join(
-        f"{name}: loops {r['loops']}, GBA "
+    print("[endurance] CPU references: " + "; ".join(
+        f"{name} ({r['descriptors']}): loops {r['loops']}, GBA "
         f"{[(g['path'], g['bucket'][0]) for g in r['gba']]}, "
         f"compactions {r['compactions']}, relocalizations "
         f"{r['relocalizations']}, crisis frames {r['crisis_frames']}, "
         f"lost {r['lost']}, keyframes {r['keyframes']}, ATE {r['ate']}"
-        for name, r in REF_DUMBBELL.items()))
+        for name, r in REF_DUMBBELL.items())
+        + f"; ATE bound {ATE_LIKE_FOR_LIKE:.4f} m")
     print(f"[endurance] per frame (host clock, build_frame + track_frame, "
           f"pipelined): median {out['frame_ms_median']:.2f} ms, p90 "
           f"{out['frame_ms_p90']:.2f} ms; {run_s:.1f} s in all; syncs "
@@ -2533,9 +2618,145 @@ def phase_endurance(cfg, dev, render: PooledRender) -> dict:
           f"{ref_kf}")
     if max(_ref_range("compactions")) > 0:
         _need(system.compactions >= 1, "no compaction")
-    _need(stats["ate"] <= 2 * max(_ref_range("ate")),
-          f"ATE {stats['ate']:.4f} m")
+    _need(stats["ate"] <= ATE_LIKE_FOR_LIKE,
+          f"ATE {stats['ate']:.4f} m, bound {ATE_LIKE_FOR_LIKE:.4f} m")
+    t0 = time.perf_counter()
+    out["compaction"] = phase_compaction(cfg, dev, system, render)
+    print(f"[time] phase 11 (compaction and {COMPACT_NEXT_FRAMES} frames "
+          f"after it) in {time.perf_counter() - t0:.1f} s")
     return out, kept
+
+
+def centre_errors(est_cw: np.ndarray, gt_cw: np.ndarray) -> np.ndarray:
+    """Each frame's camera-centre distance (m) after the alignment of
+    ``synthetic.ate_rmse`` (Umeyama, no scale)."""
+    def centres(T):
+        T = np.asarray(T, np.float64)
+        return -np.einsum("nji,nj->ni", T[:, :3, :3], T[:, :3, 3])
+
+    ce, cg = centres(est_cw), centres(gt_cw)
+    mu_e, mu_g = ce.mean(0), cg.mean(0)
+    U, _, Vt = np.linalg.svd((ce - mu_e).T @ (cg - mu_g))
+    S = np.diag([1.0, 1.0, np.sign(np.linalg.det(Vt.T @ U.T))])
+    R = Vt.T @ S @ U.T
+    return np.linalg.norm(ce @ R.T + (mu_g - R @ mu_e) - cg, axis=-1)
+
+
+def _map_snapshot(system) -> dict:
+    """The live points (position, descriptor and observations on the host
+    and in the device mirror) and keyframes (pose and stored keypoints)
+    of a flushed session, by their slot ids."""
+    m, tr = system.map, system.tracker
+    n_pt, n_kf = m.n_points, m.n_keyframes
+    obs = m._obs[: m._obs_n]
+    alive = (m._obs_alive[: m._obs_n]
+             & m.kf_valid[np.clip(obs[:, 0], 0, m.max_keyframes - 1)]
+             & m.pt_valid[np.clip(obs[:, 1], 0, m.max_points - 1)])
+    pts = np.where(m.pt_valid[:n_pt])[0]
+    kfs = np.where(m.kf_valid[:n_kf])[0]
+    d_pts = torch.from_numpy(pts).to(tr.device)
+    d_kfs = torch.from_numpy(kfs).to(tr.device)
+    return {
+        "pts": pts, "kfs": kfs, "obs": obs[alive].copy(),
+        "pt_pos": m.pt_pos[pts].copy(), "pt_desc": m.pt_desc_u8[pts].copy(),
+        "kf_pose": m.kf_pose[kfs].copy(),
+        "dev_pt_pos": tr.dmap.pt_pos[d_pts].cpu().numpy(),
+        "dev_pt_desc": tr.dmap.pt_desc_u8[d_pts].cpu().numpy(),
+        "dev_pt_obs": tr.dmap.pt_obs_count[d_pts].cpu().numpy(),
+        "dev_kf_desc": tr.kf_store.desc_u8[d_kfs].cpu().numpy(),
+        "poses": system.frame_poses().copy()}
+
+
+def phase_compaction(cfg, dev, system, render: PooledRender) -> dict:
+    """Compaction on the card, forced on phase 11's flushed session:
+    ``System._compact()`` once, then every live point's position,
+    descriptor and observations (host and device mirror) and every live
+    keyframe's pose and stored descriptors bit-equal under the remap
+    (live entries slide down in slot order), ``frame_poses()`` unchanged
+    (bit for bit where a frame's reference keyframe lived; within
+    ``COMPACT_POSE_ATOL`` where its record was re-expressed through a
+    live ancestor), and ``COMPACT_NEXT_FRAMES`` more lap frames tracked
+    on the compacted map, none lost."""
+    lap = synthetic.figure8_lap_frames()
+    before = _map_snapshot(system)
+    n_slots = system.map.n_points
+    refs = np.array([r.ref_kf for r in system.tracker.trajectory], int)
+    re_expressed = ~system.map.kf_valid[np.clip(refs, 0, None)] | (refs < 0)
+    t0 = time.perf_counter()
+    system._compact()
+    torch.cuda.synchronize()
+    compact_ms = 1e3 * (time.perf_counter() - t0)
+    after = _map_snapshot(system)
+    n_pt, n_kf = len(before["pts"]), len(before["kfs"])
+    m = system.map
+    _need(system.compactions == 1 and m.n_points == n_pt
+          and m.n_keyframes == n_kf, f"compaction left {m.n_points} "
+          f"points and {m.n_keyframes} keyframes, {n_pt} and {n_kf} live")
+    _need(np.array_equal(after["pts"], np.arange(n_pt))
+          and np.array_equal(after["kfs"], np.arange(n_kf)),
+          "live slots not contiguous after compaction")
+    lut_pt = {int(o): i for i, o in enumerate(before["pts"])}
+    lut_kf = {int(o): i for i, o in enumerate(before["kfs"])}
+    for key in ("pt_pos", "pt_desc", "kf_pose", "dev_pt_pos", "dev_pt_desc",
+                "dev_pt_obs", "dev_kf_desc"):
+        _need(np.array_equal(before[key], after[key]),
+              f"compaction changed {key}")
+    obs_before = sorted((lut_kf[int(k)], lut_pt[int(p)], int(i))
+                        for k, p, i in before["obs"])
+    obs_after = sorted(map(tuple, after["obs"].tolist()))
+    _need(obs_before == obs_after, f"observations {len(obs_before)} live "
+          f"before, {len(obs_after)} after, or remapped wrongly")
+    dp = np.abs(before["poses"].astype(np.float64)
+                - after["poses"].astype(np.float64)).reshape(
+                    len(refs), -1).max(-1)
+    exact = int((dp[~re_expressed] == 0).sum())
+    _need(exact == int((~re_expressed).sum()),
+          f"frame_poses changed for {int((~re_expressed).sum()) - exact} "
+          "frames whose reference keyframe lived")
+    _need(float(dp.max(initial=0.0)) <= COMPACT_POSE_ATOL,
+          f"frame_poses moved by {dp.max():.3g}")
+    # track on: the lap's next frames (frame i shows render i % lap)
+    n0 = len(system.tracker.trajectory)
+    kernel_orb.LAUNCHES = 0
+    kernel_match.LAUNCHES = 0
+    t1 = time.perf_counter()
+    for i in range(n0, n0 + COMPACT_NEXT_FRAMES):
+        left, right, classes = render.frame(i % lap)
+        cls, conf, ent = synthetic.structured_semantics(classes, seed=7)
+        f = frame_mod.build_frame(
+            system.model, system.statics, left, right, system.generator,
+            sem_override=(cls, conf, ent, False), device=dev)
+        system.track_frame(f, i * 0.1, pipeline=True)
+    system.flush()
+    track_s = time.perf_counter() - t1
+    recs = system.tracker.trajectory[n0:]
+    lost = [n0 + j for j, r in enumerate(recs) if r.lost]
+    out = {"points": n_pt, "keyframes": n_kf,
+           "points_freed": n_slots - n_pt, "observations": len(obs_after),
+           "frames_re_expressed": int(re_expressed.sum()),
+           "pose_max_diff": float(dp.max(initial=0.0)),
+           "compact_ms": compact_ms, "next_frames": len(recs),
+           "next_lost": lost, "next_s": track_s,
+           "launches": {"k1": kernel_orb.LAUNCHES,
+                        "k2": kernel_match.LAUNCHES}}
+    print(f"[compaction] forced after the lap: {n_pt} live points and "
+          f"{n_kf} live keyframes slid to slots 0.., {out['points_freed']} "
+          f"point slots freed, {len(obs_after)} observations; positions, "
+          "descriptors, observations (host and device) and keyframe poses "
+          f"bit-equal under the remap; frame_poses bit-equal for "
+          f"{exact} frames, {out['frames_re_expressed']} re-expressed "
+          f"through a live ancestor (largest change {dp.max():.3g}); "
+          f"{compact_ms:.1f} ms")
+    print(f"[compaction] then {len(recs)} lap frames tracked on the "
+          f"compacted map in {track_s:.1f} s, lost {lost}; K1 "
+          f"{kernel_orb.LAUNCHES}, K2 {kernel_match.LAUNCHES} launches")
+    _need(len(recs) == COMPACT_NEXT_FRAMES and not lost,
+          f"after compaction {len(recs)} frames tracked, lost {lost}")
+    _need(kernel_orb.LAUNCHES == 2 * COMPACT_NEXT_FRAMES
+          and kernel_match.LAUNCHES > 0,
+          f"after compaction K1 {kernel_orb.LAUNCHES}, K2 "
+          f"{kernel_match.LAUNCHES} launches")
+    return out
 
 
 def _pcg_solve(prob, cam, iterations: int = PCG_ITERATIONS):
@@ -2566,8 +2787,8 @@ def _f64(prob):
 
 
 def _pcg_shuffled(prob, cam, seed: int):
-    """The solve with the observations in another order (the float32
-    sums of the CG products change order, as the card's atomics do),
+    """The solve with the observations in another order (the sums of
+    the CG products change order, as the card's atomics do),
     its inlier flags put back in the problem's order."""
     perm = torch.randperm(prob.obs_kf.shape[0],
                           generator=torch.Generator().manual_seed(seed))
@@ -2597,12 +2818,13 @@ def _pcg_distance(a, b, pt_valid) -> dict:
 def phase_pcg(name: str, case, against_dense: bool) -> dict:
     """The PCG GBA (``gba_cg``: begin, ``PCG_ITERATIONS`` steps, finish)
     on a kept problem on the card, held to the same solve on the CPU
-    copy of the problem: in float64 within ``PCG_TOLS`` (the chi2's
-    one-sided), inlier flags equal; in float32 each distance within the
-    larger of ``PCG_TOLS`` and twice the CPU float32 solve's float noise
-    (its largest distance to its float64 solve and to itself on
-    ``PCG_SHUFFLES`` orders of the observations), the inlier flags
-    differing no more than twice as often as that noise makes them. With
+    copy of the problem, in float64 and in float32: each distance within
+    the larger of ``PCG_TOLS`` (the chi2's one-sided) and twice the CPU
+    solve's own noise in that precision (its largest distance to itself
+    on ``PCG_SHUFFLES`` orders of the observations; in float32 also to
+    its float64 solve; in float64 measured only where ``PCG_TOLS`` is
+    not met), the inlier flags differing no more than twice as often as
+    that noise makes them. With
     ``against_dense``, PCG to convergence in float64 on the card is also
     held to the dense ``global_bundle_adjustment`` in float64 on the card
     within 10b's bounds."""
@@ -2616,7 +2838,8 @@ def phase_pcg(name: str, case, against_dense: bool) -> dict:
     t0 = time.perf_counter()
     cpu = _pcg_solve(cpu_prob, cam)
     cpu_ms = 1e3 * (time.perf_counter() - t0)
-    f64 = _pcg_solve(_f64(cpu_prob), cam)
+    cpu64 = _f64(cpu_prob)
+    f64 = _pcg_solve(cpu64, cam)
     card64 = _pcg_solve(_f64(prob), cam)
     pv = cpu_prob.pt_valid
     got = _pcg_distance(card, cpu, pv)
@@ -2624,29 +2847,48 @@ def phase_pcg(name: str, case, against_dense: bool) -> dict:
     floors = [_pcg_distance(cpu, f64, pv)] + [
         _pcg_distance(_pcg_shuffled(cpu_prob, cam, seed), cpu, pv)
         for seed in range(PCG_SHUFFLES)]
-    floor = {k: max(abs(f[k]) for f in floors) for k in floors[0]}
-    tol = {k: max(v, 2 * floor[k]) for k, v in PCG_TOLS.items()}
+    # the float64 noise costs 4 more CPU solves: measured only where the
+    # card's float64 solve is not within PCG_TOLS of the CPU's
+    floors64 = [] if got64["inlier_differ"] == 0 and all(
+        got64[k] <= v for k, v in PCG_TOLS.items()) else [
+        _pcg_distance(_pcg_shuffled(cpu64, cam, seed), f64, pv)
+        for seed in range(PCG_SHUFFLES)]
+
+    def bound(fl):
+        most = {k: max(abs(f[k]) for f in fl) for k in fl[0]}
+        return most, {k: max(v, 2 * most[k]) for k, v in PCG_TOLS.items()}
+
+    floor, tol = bound(floors)
+    floor64, tol64 = (bound(floors64) if floors64
+                      else ({"inlier_differ": 0}, PCG_TOLS))
     out = {"caps": [prob.kf_pose.shape[0], prob.pt_pos.shape[0],
                     prob.obs_kf.shape[0]],
            "valid": [int(prob.kf_valid.sum()), int(pv.sum()),
                      int(prob.obs_valid.sum())],
            "card_ms": card_ms, "cpu_ms": cpu_ms, "card_vs_cpu": got,
            "card_vs_cpu_f64": got64, "cpu_f32_vs_f64": floors[0],
-           "cpu_vs_shuffled": floors[1:], "tolerance": tol}
+           "cpu_vs_shuffled": floors[1:], "tolerance": tol,
+           "cpu_f64_vs_shuffled": floors64, "tolerance_f64": tol64}
     print(f"[pcg] {name}: caps {out['caps']}, valid {out['valid']}; "
           f"begin + {PCG_ITERATIONS} steps + finish on the card "
           f"{card_ms:.1f} ms (wall), on the CPU {cpu_ms:.1f} ms; chi2 card "
           f"{float(card.chi2):.8g}, CPU {float(cpu.chi2):.8g}, float64 card "
           f"{float(card64.chi2):.10g}, CPU {float(f64.chi2):.10g}")
     for k in PCG_TOLS:
+        def orders(fl, k=k):
+            return ", ".join(f"{f[k]:.3g}" for f in fl)
+
+        noise64 = (f", CPU float64 against itself on {PCG_SHUFFLES} "
+                   f"shuffled orders {orders(floors64)}" if floors64 else "")
         print(f"[pcg] {name}: {k} float64 card against CPU {got64[k]:.3g} "
-              f"(<= {PCG_TOLS[k]:.3g}); float32 card against CPU "
-              f"{got[k]:.3g} (<= {tol[k]:.3g}); CPU float32 against float64 "
-              f"{floors[0][k]:.3g}, against itself on {PCG_SHUFFLES} "
-              f"shuffled orders " + ", ".join(f"{f[k]:.3g}"
-                                              for f in floors[1:]))
+              f"(<= {tol64[k]:.3g}){noise64}; float32 "
+              f"card against CPU {got[k]:.3g} (<= {tol[k]:.3g}); CPU float32 "
+              f"against float64 {floors[0][k]:.3g}, against itself on "
+              f"{PCG_SHUFFLES} shuffled orders {orders(floors[1:])}")
+    inliers64 = (" (CPU float64 on shuffled orders " + ", ".join(
+        str(f["inlier_differ"]) for f in floors64) + ")") if floors64 else ""
     print(f"[pcg] {name}: inlier flags differing, float64 card against CPU "
-          f"{got64['inlier_differ']}, float32 card against CPU "
+          f"{got64['inlier_differ']}{inliers64}, float32 card against CPU "
           f"{got['inlier_differ']}, CPU float32 against float64 "
           f"{floors[0]['inlier_differ']}, against itself on shuffled "
           f"orders " + ", ".join(str(f["inlier_differ"])
@@ -2692,12 +2934,14 @@ def phase_pcg(name: str, case, against_dense: bool) -> dict:
         _need(dpt < SHARDED_POINT_TOL, f"{name}: float64 PCG points differ "
               f"from the float64 dense GBA by {dpt:.3g} m (median)")
     for k in PCG_TOLS:
-        _need(got64[k] <= PCG_TOLS[k], f"{name}: float64 PCG {k} card "
-              f"against CPU {got64[k]:.3g} > {PCG_TOLS[k]:.3g}")
+        _need(got64[k] <= tol64[k], f"{name}: float64 PCG {k} card "
+              f"against CPU {got64[k]:.3g} > {tol64[k]:.3g}")
         _need(got[k] <= tol[k], f"{name}: PCG {k} card against CPU "
               f"{got[k]:.3g} > {tol[k]:.3g}")
-    _need(got64["inlier_differ"] == 0, f"{name}: {got64['inlier_differ']} "
-          "float64 PCG inlier flags differ card against CPU")
+    _need(got64["inlier_differ"] <= 2 * floor64["inlier_differ"],
+          f"{name}: {got64['inlier_differ']} float64 PCG inlier flags differ "
+          f"card against CPU (the CPU's float64 floor "
+          f"{floor64['inlier_differ']})")
     _need(got["inlier_differ"] <= 2 * floor["inlier_differ"],
           f"{name}: {got['inlier_differ']} PCG inlier flags differ card "
           f"against CPU (the CPU's float32 floor {floor['inlier_differ']})")
@@ -2721,7 +2965,7 @@ def main() -> int:
     torch.cuda.set_device(dev)
     t_start = time.perf_counter()
     sec = {}
-    phase_card()
+    card = phase_card()
     with _timed_phase("1 (build)", sec):
         phase_build()
     cfg = SystemConfig()
@@ -2797,6 +3041,7 @@ def main() -> int:
                                     k2_full["max_abs_err"])
     sec["total"] = time.perf_counter() - t_start
     print(f"[time] chip_smoke.py in {sec['total']:.1f} s")
+    print(card)  # again, beside the totals at the end of a long output
     launches = loop["launches"]
     run_c = cli_run.pop("run_c")
     print(json.dumps({"kernels": [

@@ -9,8 +9,8 @@ case selection, absolute orientation) -> chi2 inlier counts -> the best
 hypothesis, polished by the pose LM on its inliers (ref: PnPsolver.cc).
 
 Minimal sets are drawn by Gumbel top-k from an explicit
-``torch.Generator``; they cannot equal the JAX package's draws, which
-come from ``jax.random``.
+``torch.Generator`` (``draw_sets``); they cannot equal the JAX
+package's draws, which come from ``jax.random``.
 """
 
 from __future__ import annotations
@@ -212,6 +212,17 @@ def _epnp(pw: torch.Tensor, uv: torch.Tensor,
     )[..., 0, :, :]
 
 
+def draw_sets(valid: torch.Tensor, generator: torch.Generator | None,
+              n_hypotheses: int = 256) -> torch.Tensor:
+    """(H, MIN_SET) minimal sets among the valid points, by Gumbel
+    top-k."""
+    u01 = torch.rand((n_hypotheses, valid.shape[0]), generator=generator,
+                     device=valid.device)
+    g = -torch.log(-torch.log(u01.clamp(1e-20, 1.0 - 1e-7)))  # Gumbel
+    g = torch.where(valid[None, :], g, torch.full_like(g, float("-inf")))
+    return torch.topk(g, MIN_SET, dim=1).indices
+
+
 def ransac_pnp(
     pw: torch.Tensor,  # (N, 3) world points
     uv: torch.Tensor,  # (N, 2) measured pixels
@@ -227,10 +238,7 @@ def ransac_pnp(
     radius (ref: PnPsolver.cc:131-270, :241-258)."""
     n = pw.shape[0]
     dev = pw.device
-    u01 = torch.rand((n_hypotheses, n), generator=generator, device=dev)
-    g = -torch.log(-torch.log(u01.clamp(1e-20, 1.0 - 1e-7)))  # Gumbel
-    g = torch.where(valid[None, :], g, torch.full_like(g, float("-inf")))
-    sets = torch.topk(g, MIN_SET, dim=1).indices  # (H, MIN_SET)
+    sets = draw_sets(valid, generator, n_hypotheses)  # (H, MIN_SET)
     poses = _epnp(pw[sets], uv[sets], cam)  # (H, 4, 4)
 
     R, t = poses[:, :3, :3], poses[:, :3, 3]

@@ -1,6 +1,7 @@
 """The loop closer's PCG global BA branch, the port's against the JAX
 package's, through the closers themselves: tests/test_loopclosing.py's
-drifted out-and-back map (320x192, 13 keyframes), with the dense GBA's
+drifted out-and-back map (320x192, 13 keyframes; described with K1's
+semantics as in tests/test_torch_loopclosing.py), with the dense GBA's
 keyframe cap (``GBA_KF``) lowered to 8 and a single PCG bucket of 10
 keyframes (``GBA_BUCKETS``) in both closers, so that the closure's GBA
 takes the PCG branch with a keyframe window (13 keyframes > 10): the
@@ -28,9 +29,9 @@ from sivo_tpu_torch.optim import sim3_opt
 from sivo_tpu_torch.runtime import loopclosing as t_lc
 from sivo_tpu_torch.runtime.tracking import make_camera
 from tests.test_loopclosing import loop_setup  # noqa: F401 (fixture)
-from tests.test_torch_loopclosing import (
-    _jax_draw_sets, _run, port_config, port_map, port_tracker,
-    port_vocabulary)
+from tests.test_torch_loopclosing import (  # noqa: F401 (fixture)
+    _jax_draw_sets, _run, k1_loop_setup, port_config, port_map,
+    port_tracker, port_vocabulary)
 
 GBA_KF = 8
 GBA_BUCKETS = ((10, 8192, 16384),)
@@ -41,8 +42,8 @@ def _centres(poses):
 
 
 @pytest.fixture(scope="module")
-def pcg_closed(loop_setup):  # noqa: F811
-    cfg_j, cam_j, jm, jtr, vj, _, _ = loop_setup
+def pcg_closed(k1_loop_setup):  # noqa: F811
+    cfg_j, cam_j, jm, jtr, vj, _, _ = k1_loop_setup
     cfg = port_config(cfg_j)
     n_kf = jm.n_keyframes
     tm = port_map(jm)  # before the JAX closer edits its map in place

@@ -1,8 +1,10 @@
 """Two loop closures in one session, the port's loop closer against the
 JAX package's: tests/test_loopclosing.py's drifted map built along an
 out-and-back driven twice (320x192, 25 keyframes whose x drifts 0.04 m
-per keyframe; ``forward_trajectory`` is patched for the fixture so that
-its out-and-back becomes out, back, out, back). The second revisit of
+per keyframe, described with K1's semantics as in
+tests/test_torch_loopclosing.py; ``forward_trajectory`` is patched for
+the fixture so that its out-and-back becomes out, back, out, back).
+The second revisit of
 the start comes 12 keyframes after the first, past the closer's
 10-keyframe gap (``min_kfs_since_last_loop``).
 
@@ -26,8 +28,9 @@ from sivo_tpu_torch.optim import sim3_opt
 from sivo_tpu_torch.runtime import loopclosing as t_lc
 from sivo_tpu_torch.runtime.tracking import make_camera
 from tests.test_loopclosing import loop_setup  # noqa: F401 (fixture)
-from tests.test_torch_loopclosing import (
-    _jax_draw_sets, port_config, port_map, port_tracker, port_vocabulary)
+from tests.test_torch_loopclosing import (  # noqa: F401 (fixture)
+    _jax_draw_sets, k1_loop_setup, port_config, port_map, port_tracker,
+    port_vocabulary)
 
 
 @pytest.fixture(scope="module")
@@ -57,8 +60,8 @@ def _centres(poses):
 
 
 @pytest.fixture(scope="module")
-def closed_twice(driven_twice, loop_setup):  # noqa: F811
-    cfg_j, cam_j, jm, jtr, vj, _, _ = loop_setup
+def closed_twice(driven_twice, k1_loop_setup):  # noqa: F811
+    cfg_j, cam_j, jm, jtr, vj, _, _ = k1_loop_setup
     cfg = port_config(cfg_j)
     n_kf = jm.n_keyframes
     tm = port_map(jm)  # before the JAX closer edits its map in place

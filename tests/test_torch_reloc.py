@@ -3,7 +3,9 @@ tests/test_system_modes.py's kidnapped-robot test, with the JAX
 package's System on the same frames alongside.
 
 Both Systems map the 18-frame corridor of tests/test_system_modes.py
-(320x192, fps 3 so that it makes more than 5 keyframes) with a
+(320x192, fps 3 so that it makes more than 5 keyframes; the JAX
+package's frames, described by its K1 with the kernel's semantics as the
+port's K1, ``tests/jax_kernel_semantics.py``) with a
 vocabulary trained on its first 4 frames, each frame followed by
 ``flush`` (which drains the mapper and the loop closer, so both runs
 are deterministic). Then the believed pose is teleported 4 m ahead with
@@ -29,6 +31,7 @@ from sivo_tpu.runtime.tracking import TrackingState as JState
 from sivo_tpu_torch.runtime import frame as t_frame
 from sivo_tpu_torch.runtime.system import System
 from sivo_tpu_torch.runtime.tracking import TrackingState
+from tests.jax_kernel_semantics import k1_kernel_semantics
 from tests.test_system_modes import world_and_frames  # noqa: F401 (fixture)
 from tests.test_torch_loopclosing import port_config, port_vocabulary
 
@@ -59,8 +62,15 @@ def _kidnap_port(system, bogus):
 
 
 @pytest.fixture(scope="module")
-def kidnapped(world_and_frames):  # noqa: F811
-    cfg_j, gt, fj = world_and_frames
+def k1_world_and_frames(request):
+    """The corridor's frames, described with K1's semantics."""
+    with k1_kernel_semantics():
+        return request.getfixturevalue("world_and_frames")
+
+
+@pytest.fixture(scope="module")
+def kidnapped(k1_world_and_frames):
+    cfg_j, gt, fj = k1_world_and_frames
     desc = [np.asarray(f.desc_u8)[np.asarray(f.semantic)] for f in fj[:4]]
     vj = j_voc.train(np.concatenate(desc), k=8, depth=3, seed=0)
     cfg_j = dataclasses.replace(

@@ -1,5 +1,7 @@
 """The port's own SLAM session end to end on the CPU (its frontend, its
-tracker and its mapper; no JAX in the loop).
+tracker and its mapper; no JAX in the loop: no JAX frontend runs, so no
+descriptor path of the JAX package is involved, and the JAX package
+appears only as the reference trajectory writer in (c)).
 
 (a) ``System.track_stereo`` for 4 frames of the VO world of
     tests/test_tracking.py with SegNet basic running (seeded random

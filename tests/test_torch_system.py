@@ -3,12 +3,16 @@ package on the CPU, on the VO world of tests/test_compact.py (320x192,
 10 frames at 0.4 m per frame).
 
 (a) Parity: the same JAX ``build_frame_nosegnet`` frames go into the
-    JAX ``System.track_frame`` and the port's, each call followed by
+    JAX ``System.track_frame`` and the port's, their descriptors from
+    the JAX package's K1 with the kernel's semantics (interpreted; the
+    port's K1 semantics, ``tests/jax_kernel_semantics.py``), not its
+    CPU XLA path, each call followed by
     ``system.mapper.drain(system.tracker)``, which makes both mappers
     deterministic (the JAX package's stage completion is otherwise a
     thread future). Per-frame poses from ``frame_poses()`` (re-chained
-    through the BA-corrected keyframes) agree within 1e-3 m and 1e-3
-    rad; lost frames, keyframes and BA solves are equal. Map points:
+    through the BA-corrected keyframes) agree within 1e-4 m (measured
+    5.7e-6 m) and 1e-3 rad (the float32 rotations' own floor: 7e-4);
+    lost frames, keyframes and BA solves are equal. Map points:
     within 1% (measured equal) because a triangulated point whose
     parallax cosine sits within float32 rounding of the 0.9998 gate can
     be accepted by one framework and not the other (see
@@ -35,6 +39,7 @@ from sivo_tpu_torch.runtime import compact as compact_mod
 from sivo_tpu_torch.runtime import device_map
 from sivo_tpu_torch.runtime import frame as t_frame
 from sivo_tpu_torch.runtime.system import System
+from tests.jax_kernel_semantics import k1_kernel_semantics
 
 torch.set_num_threads(2)
 CPU = torch.device("cpu")
@@ -68,10 +73,11 @@ def frames():
     cls, conf, ent = synthetic.constant_semantics(CAM_FIELDS["height"],
                                                   CAM_FIELDS["width"])
     statics = j_frame.make_statics(make_cfg(j_config))
-    fj = [j_frame.build_frame_nosegnet(
-        statics, jnp.asarray(left[i]), jnp.asarray(right[i]),
-        jnp.asarray(cls), jnp.asarray(conf), jnp.asarray(ent))
-        for i in range(N_FRAMES)]
+    with k1_kernel_semantics():
+        fj = [j_frame.build_frame_nosegnet(
+            statics, jnp.asarray(left[i]), jnp.asarray(right[i]),
+            jnp.asarray(cls), jnp.asarray(conf), jnp.asarray(ent))
+            for i in range(N_FRAMES)]
     ft = [t_frame.Frame(*(torch.from_numpy(np.array(x)) for x in f))
           for f in fj]
     return fj, ft, gt
@@ -93,7 +99,7 @@ def test_session_parity_poses(parity_run):
     js, ts, _ = parity_run
     pj, pt = js.frame_poses(), ts.frame_poses()
     assert pj.shape == pt.shape == (N_FRAMES, 4, 4)
-    np.testing.assert_allclose(pt[:, :3, 3], pj[:, :3, 3], rtol=0, atol=1e-3)
+    np.testing.assert_allclose(pt[:, :3, 3], pj[:, :3, 3], rtol=0, atol=1e-4)
     for i in range(N_FRAMES):
         c = (np.trace(pt[i, :3, :3] @ pj[i, :3, :3].T) - 1.0) / 2.0
         assert np.arccos(np.clip(c, -1.0, 1.0)) < 1e-3, i

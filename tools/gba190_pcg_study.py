@@ -12,13 +12,21 @@ each run's map, and so its problem, differ) saves each run's dense GBA
 problem to ``OUT_DIR/prob<i>.pt`` and prints the table below for it on
 the card.
 
+``python3 tools/gba190_pcg_study.py lap OUT_DIR RENDERS`` (the CPU,
+~25 minutes) runs the port's session of ``chip_smoke.py``'s phase 11 on
+the dumbbell lap's renders (``RENDERS``: the ``dumbbell404.npz`` that
+``tools/dumbbell_jax_reference.py`` writes; frame i shows render
+i % 404) until the loop closer begins its first PCG global BA, and saves
+that problem to ``OUT_DIR/prob_lap.pt``.
+
 ``python3 tools/gba190_pcg_study.py cpu OUT_DIR`` (the CPU, a few
 minutes a problem) prints the same table for every ``prob*.pt`` in
-``OUT_DIR``, then the float32 noise of ``chip_smoke.py``'s PCG solve: its
-distances to its float64 solve and to itself on 8 orders of the
+``OUT_DIR``, then the noise of ``chip_smoke.py``'s PCG solve: the float32
+solve's distances to its float64 solve and to itself on 8 orders of the
 observations, and how often the float32 gate would fail with each
 order in turn taken as the card's solve, its noise bound made from
-float64 and order 0 (one order) or orders 0-3 (``PCG_SHUFFLES``).
+float64 and order 0 (one order) or orders 0-3 (``PCG_SHUFFLES``); then
+the float64 solve's distances to itself on the same 8 orders.
 
 The table: every valid keyframe's largest |log(T_a^-1 T_b)| component,
 its largest over the keyframes (and which keyframe, with its
@@ -38,6 +46,7 @@ import glob
 import os
 import sys
 
+import numpy as np
 import torch
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
@@ -144,6 +153,46 @@ def card(out_dir: str, runs: int) -> None:
         analyse(f"run {i} (card)", prob, cam)
 
 
+def lap(out_dir: str, renders: str) -> None:
+    from sivo_tpu_torch.config import SystemConfig
+    from sivo_tpu_torch.io import synthetic
+    from sivo_tpu_torch.place import vocabulary as voc_mod
+    from sivo_tpu_torch.runtime import frame as frame_mod
+    from sivo_tpu_torch.runtime.system import System
+
+    z = np.load(renders)
+    left, right, classes = z["left"], z["right"], z["cls"]
+    cfg, dev = SystemConfig(), torch.device("cpu")
+    statics = frame_mod.make_statics(cfg)
+    system = System(cfg=cfg, device=dev, max_keyframes=448,
+                    max_points=49152, pipeline_depth=3)
+    system.attach_vocabulary(voc_mod.load_npz(cs.VOCABULARY))
+    kept, begin = [], gba_cg.gba_cg_begin
+
+    def keep(prob, cam):
+        kept.append((tuple(t.clone() for t in prob), tuple(cam)))
+        return begin(prob, cam)
+
+    gba_cg.gba_cg_begin = keep
+    i = 0
+    while not kept and i < cs.DUMBBELL_FRAMES:
+        s = i % len(left)
+        sem = synthetic.structured_semantics(classes[s], seed=7)
+        system.track_frame(frame_mod.build_frame_nosegnet(
+            statics, left[s], right[s], *sem, device=dev), i * 0.1,
+            pipeline=True)
+        i += 1
+    if not kept:
+        sys.exit(f"no PCG global BA in {i} frames")
+    os.makedirs(out_dir, exist_ok=True)
+    torch.save({"prob": kept[0][0], "cam": kept[0][1]},
+               os.path.join(out_dir, "prob_lap.pt"))
+    prob = local_ba.BAProblem(*kept[0][0])
+    print(f"the first PCG global BA began at frame {i - 1}: "
+          f"{int(prob.kf_valid.sum())} keyframes, {int(prob.pt_valid.sum())} "
+          f"points, {int(prob.obs_valid.sum())} observations", flush=True)
+
+
 def float_noise(prob, cam, shuffles: int = 8) -> None:
     """``chip_smoke.py``'s card-against-CPU distances (``_pcg_distance``)
     between the CPU's float32 solve of ``PCG_ITERATIONS`` steps and its
@@ -152,9 +201,10 @@ def float_noise(prob, cam, shuffles: int = 8) -> None:
     gives, which the card's atomics draw from."""
 
     base = cs._pcg_solve(prob, cam)
+    prob64 = cs._f64(prob)
+    base64 = cs._pcg_solve(prob64, cam)
     pv = prob.pt_valid
-    rows = [("float64", cs._pcg_distance(cs._pcg_solve(cs._f64(prob), cam),
-                                         base, pv))]
+    rows = [("float64", cs._pcg_distance(base64, base, pv))]
     for seed in range(shuffles):
         rows.append((f"shuffle {seed}", cs._pcg_distance(
             cs._pcg_shuffled(prob, cam, seed), base, pv)))
@@ -180,6 +230,12 @@ def float_noise(prob, cam, shuffles: int = 8) -> None:
           f"{len(one)} ({one}); from float64 and orders 0-"
           f"{cs.PCG_SHUFFLES - 1} for {sum(map(bool, four.values()))} of "
           f"{len(four)} ({four})", flush=True)
+    for seed in range(shuffles):
+        d = cs._pcg_distance(cs._pcg_shuffled(prob64, cam, seed), base64, pv)
+        print(f"  {cs.PCG_ITERATIONS} steps in float64, shuffle {seed} "
+              f"against float64: " + ", ".join(f"{k} {v:.3g}"
+                                                for k, v in d.items()),
+              flush=True)
 
 
 def cpu(out_dir: str) -> None:
@@ -192,9 +248,13 @@ def cpu(out_dir: str) -> None:
 
 
 if __name__ == "__main__":
-    if len(sys.argv) not in (3, 4) or sys.argv[1] not in ("card", "cpu"):
-        sys.exit("usage: gba190_pcg_study.py card|cpu OUT_DIR [RUNS]")
+    if len(sys.argv) not in (3, 4) or sys.argv[1] not in ("card", "cpu",
+                                                           "lap"):
+        sys.exit("usage: gba190_pcg_study.py card OUT_DIR [RUNS] | "
+                 "cpu OUT_DIR | lap OUT_DIR RENDERS")
     if sys.argv[1] == "card":
         card(sys.argv[2], int(sys.argv[3]) if len(sys.argv) == 4 else 3)
+    elif sys.argv[1] == "lap":
+        lap(sys.argv[2], sys.argv[3])
     else:
         cpu(sys.argv[2])
