@@ -61,6 +61,12 @@ def _kabsch(src: torch.Tensor, dst: torch.Tensor) -> torch.Tensor:
                        torch.full_like(T, float("nan")))
 
 
+def _finite_or_zero(A: torch.Tensor) -> torch.Tensor:
+    """The batch's matrices, each replaced by zeros if not finite."""
+    finite = torch.isfinite(A).all(dim=-1).all(dim=-1)
+    return torch.where(finite[..., None, None], A, torch.zeros_like(A))
+
+
 def _solve_ls(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Batched least squares of a small (..., 6, k) system via ridge-
     stabilized normal equations."""
@@ -148,7 +154,10 @@ def _epnp(pw: torch.Tensor, uv: torch.Tensor,
     c0 = pw.mean(dim=-2)
     centered = pw - c0[..., None, :]
     cov = centered.transpose(-1, -2) @ centered / m
-    evals, evecs = torch.linalg.eigh(cov)
+    # a set with a non-finite point makes eigh raise (the JAX package's
+    # returns NaN): its matrices are solved as zeros, and its hypothesis
+    # comes out NaN from _kabsch, which the callers' finite checks discard
+    evals, evecs = torch.linalg.eigh(_finite_or_zero(cov))
     scale = torch.sqrt(torch.clamp(evals, min=1e-10))
     ctrl = torch.cat([
         c0[..., None, :],
@@ -171,7 +180,7 @@ def _epnp(pw: torch.Tensor, uv: torch.Tensor,
     ).reshape(*alphas.shape[:-1], 12)
     Mm = torch.cat([row_u, row_v], dim=-2)  # (..., 2M, 12)
     MtM = Mm.transpose(-1, -2) @ Mm
-    _, vecs = torch.linalg.eigh(MtM)
+    _, vecs = torch.linalg.eigh(_finite_or_zero(MtM))
     batch = MtM.shape[:-2]
     vk = vecs[..., :, :4].transpose(-1, -2).reshape(*batch, 4, 4, 3)
 

@@ -607,3 +607,55 @@ def test_pose_lm_graph_equals_eager(cuda):
                 assert torch.equal(g, w), name
     # one graph per schedule, replayed for the second problem
     assert len(pose_lm._GRAPHS) == before + 2
+
+
+def test_kabsch_and_ransac_discard_a_non_finite_hypothesis(cuda,
+                                                           monkeypatch):
+    """On the card as on the CPU (``test_torch_geometry.py::
+    test_kabsch_discards_a_non_finite_hypothesis``): ``_kabsch`` solves a
+    hypothesis whose points are not finite as zeros and returns it NaN,
+    beside a good one; and in ``ransac_pnp`` a minimal set holding a
+    point with no finite position (the EPnP of a degenerate set) gives a
+    NaN hypothesis, which the finite check keeps from being the best:
+    the RANSAC returns the pose of the good sets on both devices."""
+    from sivo_tpu_torch.place import pnp
+
+    rng = np.random.default_rng(4)
+    src = rng.uniform(-2, 2, (2, 6, 3)).astype(np.float32)
+    T = se3.exp(torch.tensor([0.1, -0.2, 0.3, 0.05, -0.1, 0.2])).numpy()
+    dst = src @ T[:3, :3].T + T[:3, 3]
+    dst[1, 2] = np.nan
+    for dev in (torch.device("cpu"), cuda):
+        got = pnp._kabsch(torch.from_numpy(src).to(dev),
+                          torch.from_numpy(dst).to(dev)).cpu().numpy()
+        np.testing.assert_allclose(got[0], T, rtol=0, atol=1e-5)
+        assert np.isnan(got[1]).all()
+
+    n = 200
+    cam = make_camera(t_config.SystemConfig())
+    pc = np.stack([rng.uniform(-8, 8, n), rng.uniform(-2, 2, n),
+                   rng.uniform(4, 30, n)], 1).astype(np.float32)
+    pw = (pc - T[:3, 3]) @ T[:3, :3]  # world points of the camera points
+    uv = np.stack([cam.fx * pc[:, 0] / pc[:, 2] + cam.cx,
+                   cam.fy * pc[:, 1] / pc[:, 2] + cam.cy], 1)
+    pw[0] = np.nan  # a point with no finite position
+    sets = np.stack([np.arange(6)] + [rng.choice(np.arange(1, n), 6,
+                                                 replace=False)
+                                      for _ in range(31)])
+    monkeypatch.setattr(pnp, "draw_sets", lambda valid, generator, n_hyp=32:
+                        torch.from_numpy(sets).to(valid.device))
+    for dev in (torch.device("cpu"), cuda):
+        def t(x):
+            return torch.from_numpy(np.asarray(x)).to(dev)
+
+        hyp = pnp._epnp(t(pw)[t(sets)], t(uv.astype(np.float32))[t(sets)],
+                        cam).cpu().numpy()
+        assert np.isnan(hyp[0]).all() and np.isfinite(hyp[1:]).all()
+        valid = torch.ones(n, dtype=torch.bool, device=dev)
+        valid[0] = False
+        res = pnp.ransac_pnp(t(pw), t(uv.astype(np.float32)),
+                             torch.ones(n, device=dev), valid, None, cam,
+                             n_hypotheses=32)
+        pose = res.pose.cpu().numpy()
+        assert bool(res.ok) and np.isfinite(pose).all()
+        np.testing.assert_allclose(pose, T, rtol=0, atol=1e-3)

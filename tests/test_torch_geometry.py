@@ -206,6 +206,39 @@ def test_kabsch_discards_a_non_finite_hypothesis():
     assert np.isnan(got[1]).all()
 
 
+def test_epnp_discards_a_set_with_a_non_finite_point(monkeypatch):
+    """A minimal set holding a point with no finite position (a map
+    point gone non-finite) gives a NaN EPnP hypothesis, as in the JAX
+    package, where the port's eigh raised on it; the other sets are
+    solved as the JAX package solves them, and the RANSAC keeps their
+    pose."""
+    T_true, _, obs = _pose_problem(5, n=200)
+    rng = np.random.default_rng(5)
+    pw, uv = obs["points"].copy(), obs["uvr"][:, :2].copy()
+    pw[0] = np.nan
+    sets = np.stack([np.arange(6)] + [rng.choice(np.arange(1, 200), 6,
+                                                 replace=False)
+                                      for _ in range(15)])
+    Tj = np.asarray(j_pnp._epnp(jnp.asarray(pw[sets]),
+                                jnp.asarray(uv[sets]), J_CAM))
+    Tt = t_pnp._epnp(_t(pw[sets]), _t(uv[sets]), T_CAM).numpy()
+    assert not np.isfinite(Tj[0]).all() and np.isnan(Tt[0]).all()
+    # as in test_epnp_matches_jax: the sets whose JAX estimate is near
+    # the truth (near-degenerate float32 eigen-solves differ by solver)
+    good = np.abs(Tj[1:, :3, 3] - T_true[:3, 3]).max(1) < 0.5
+    assert good.sum() >= 8
+    np.testing.assert_allclose(Tt[1:][good], Tj[1:][good], atol=5e-2)
+    monkeypatch.setattr(t_pnp, "draw_sets",
+                        lambda valid, generator, n_hypotheses: _t(sets))
+    valid = obs["valid"].copy()
+    valid[0] = False
+    res = t_pnp.ransac_pnp(_t(pw), _t(uv), _t(obs["sigma2"]), _t(valid),
+                           None, T_CAM, n_hypotheses=16)
+    assert bool(res.ok) and np.isfinite(res.pose.numpy()).all()
+    np.testing.assert_allclose(res.pose.numpy()[:3, 3], T_true[:3, 3],
+                               atol=0.05)
+
+
 def test_ransac_pnp_finds_the_pose():
     T_true, _, obs = _pose_problem(8)
     g = torch.Generator().manual_seed(0)

@@ -29,17 +29,25 @@ keeps its admission queue non-empty and the keyframe decision's
 queue-empty clause off. Where the device outruns the host, as on the
 card, every fetch has landed by the next frame. ``--landed`` runs the
 JAX command line in that regime: its packed fetches complete before
-they return (``sivo_tpu.utils.fetch.fetch_packed_async`` wrapped here;
+they return (``sivo_tpu.utils.fetch.fetch_packed_async`` wrapped by
+``tools/jax_regime.landed_packed``;
 the package itself is unchanged). Phase 8 holds the port's keyframes to
 the ``--landed`` runs and its ATE to all four.
 
-Run from the repository root (CPU; ~10 minutes each):
-``JAX_PLATFORMS=cpu python tools/cli40_jax_reference.py [--landed] [WORK_DIR]``
+``--k1`` describes keypoints with K1's semantics, as the port's kernel
+does (``tools/jax_regime.use_k1``); without it the JAX package takes its
+CPU XLA descriptor path. The last line is a ``REF_CLI`` entry per run,
+naming both.
+
+Run from the repository root (CPU; ~10 minutes each, ~11 with ``--k1``):
+``JAX_PLATFORMS=cpu python tools/cli40_jax_reference.py [--landed] [--k1]
+[WORK_DIR]``
 """
 
 from __future__ import annotations
 
 import contextlib
+import json
 import sys
 import tempfile
 import time
@@ -53,8 +61,6 @@ import jax  # noqa: E402
 jax.config.update("jax_platforms", "cpu")
 jax.config.update("jax_default_matmul_precision", "highest")
 
-from concurrent.futures import Future  # noqa: E402
-
 import cv2  # noqa: E402
 import numpy as np  # noqa: E402
 
@@ -63,6 +69,7 @@ from sivo_tpu.config import SystemConfig  # noqa: E402
 from sivo_tpu.io import synthetic  # noqa: E402
 from sivo_tpu.place import vocabulary as voc_mod  # noqa: E402
 from sivo_tpu.utils import fetch  # noqa: E402
+from tools.jax_regime import landed_packed, take_flags, use_k1  # noqa: E402
 from tools.make_kitti_fixture import write_settings  # noqa: E402
 
 N_FRAMES = 40
@@ -100,20 +107,13 @@ def read_trajectory(path: Path) -> np.ndarray:
     return np.linalg.inv(poses)
 
 
-def fetch_landed(tree) -> fetch.PackedFuture:
-    """``fetch_packed_async`` whose copy has landed when it returns."""
-    keys, arrs, flat_dev = fetch._pack_dispatch(tree)
-    fut = Future()
-    fut.set_result(np.asarray(flat_dev))
-    return fetch.PackedFuture(keys, arrs, fut)
-
-
 def main() -> None:
-    args = sys.argv[1:]
-    landed = "--landed" in args
-    args = [a for a in args if a != "--landed"]
+    args, flags = take_flags(sys.argv[1:], "--landed", "--k1")
+    landed = flags["landed"]
     if landed:
-        fetch.fetch_packed_async = fetch_landed
+        fetch.fetch_packed_async = landed_packed
+    if flags["k1"]:
+        use_k1()
     work = Path(args[0]) if args else Path(tempfile.mkdtemp(prefix="cli40_"))
     seq = work / "seq"
     t0 = time.perf_counter()
@@ -142,10 +142,10 @@ def main() -> None:
               f"{len(poses)} poses, ATE "
               f"{ate:.4f} m, keyframes {n_kf}, "
               f"{time.perf_counter() - t1:.0f} s; counts file {counts!r}")
-    suffix = "_landed" if landed else ""
-    print("REF_CLI: 'ate%s': (%s), 'keyframes%s': (%s)" % (
-        suffix, ", ".join(f"{a:.4f}" for a, _ in results), suffix,
-        ", ".join(str(k) for _, k in results)))
+    for ate, n_kf in results:
+        print("REF_CLI " + json.dumps({
+            "descriptors": "k1" if flags["k1"] else "xla", "landed": landed,
+            "ate": round(float(ate), 4), "keyframes": n_kf}))
 
 
 if __name__ == "__main__":

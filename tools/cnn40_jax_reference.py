@@ -28,7 +28,7 @@ phase 3c and phase 8 run C hold the port to (``REF_CNN``).
    "bayesian_segnet_basic_kitti.prototxt", OUT, DIR])`` runs once on each
    trained network, in parallel processes, with semantics on and its
    host fetches landed when they return (the card's timing regime,
-   ``cli40_jax_reference.fetch_landed``; in that regime a run is
+   ``tools/jax_regime.landed_packed``; in that regime a run is
    deterministic: two runs on the seed-0 network gave the same numbers).
 
 For each run it prints the ATE (Umeyama-aligned, over
@@ -40,9 +40,15 @@ semantic flag is set (the static-class gate, over all frames), read
 from each frame that ``build_frame`` returns. The last line is the
 ``REF_CNN`` dictionary, one entry per seed.
 
-Run from the repository root (CPU; ~45 minutes on 8 cores; the CLI runs
-go two at a time, a few GB each):
-``JAX_PLATFORMS=cpu python tools/cnn40_jax_reference.py [WORK_DIR]``
+``--k1`` runs the command line with K1's descriptor semantics, as the
+port's kernel has them (``tools/jax_regime.use_k1``); without it the
+JAX package takes its CPU XLA descriptor path. Training does not
+describe keypoints, so it is the same recipe either way. The
+``REF_CNN`` line names the descriptor path.
+
+Run from the repository root (CPU; ~45 minutes on 8 cores, ~50 with
+``--k1``; the CLI runs go two at a time, a few GB each):
+``JAX_PLATFORMS=cpu python tools/cnn40_jax_reference.py [--k1] [WORK_DIR]``
 """
 
 from __future__ import annotations
@@ -71,7 +77,8 @@ from sivo_tpu.config import SystemConfig  # noqa: E402
 from sivo_tpu.io import synthetic  # noqa: E402
 from sivo_tpu.place import vocabulary as voc_mod  # noqa: E402
 from tools.cli40_jax_reference import (  # noqa: E402
-    N_FRAMES, VOCABULARY, fetch_landed, read_trajectory, write_scene)
+    N_FRAMES, VOCABULARY, read_trajectory, write_scene)
+from tools.jax_regime import landed_packed, take_flags, use_k1  # noqa: E402
 
 N_LAP = 190
 SEEDS = tuple(range(8))
@@ -196,17 +203,19 @@ class Recorder:
                 "gate_share": sem / max(valid, 1)}
 
 
-def cli_worker(work: str, model: str, run_dir: str) -> None:
-    """One landed run of the JAX command line on ``model``; prints its
-    numbers as a JSON line."""
+def cli_worker(work: str, model: str, run_dir: str, k1: bool) -> None:
+    """One landed run of the JAX command line on ``model``, with K1's
+    descriptor semantics if ``k1``; prints its numbers as a JSON line."""
     from sivo_tpu import cli
     from sivo_tpu.utils import fetch
 
+    if k1:
+        use_k1()
     work = Path(work)
     seq = work / "seq"
     gt = np.load(work / "gt.npy")
     cls_maps = np.load(work / "render_cache.npz")["cls"][:N_FRAMES]
-    fetch.fetch_packed_async = fetch_landed
+    fetch.fetch_packed_async = landed_packed
     Path(run_dir).mkdir(exist_ok=True)
     with Recorder() as rec, contextlib.chdir(run_dir):
         rc = cli.main([str(work / "voc.txt"), str(seq / "settings.yaml"),
@@ -239,11 +248,11 @@ def _parallel(commands: list[list[str]], at_once: int) -> list[str]:
 
 
 def main() -> None:
-    args = sys.argv[1:]
+    args, flags = take_flags(sys.argv[1:], "--k1")
     if args[:1] == ["--train"]:
         return train_worker(args[1], args[2], int(args[3]))
     if args[:1] == ["--cli"]:
-        return cli_worker(*args[1:4])
+        return cli_worker(*args[1:4], flags["k1"])
     work = Path(args[0]) if args else Path(tempfile.mkdtemp(prefix="cnn40_"))
     work.mkdir(parents=True, exist_ok=True)
     t0 = time.perf_counter()
@@ -282,7 +291,7 @@ def main() -> None:
 
     t0 = time.perf_counter()
     outs = _parallel([[sys.executable, me, "--cli", str(work), m,
-                       str(work / f"run_seed{s}")]
+                       str(work / f"run_seed{s}")] + ["--k1"] * flags["k1"]
                       for s, m in zip(SEEDS, models)], at_once=2)
     runs = [json.loads(out.strip().splitlines()[-1]) for out in outs]
     for s, r in zip(SEEDS, runs):
@@ -291,7 +300,8 @@ def main() -> None:
                   f"{k} {v:.4f}" if isinstance(v, float) else f"{k} {v}"
                   for k, v in r.items()), flush=True)
     print(f"{len(runs)} CLI runs in {time.perf_counter() - t0:.0f} s")
-    ref = {"holdout_acc": tuple(holdout),
+    ref = {"descriptors": "k1" if flags["k1"] else "xla",
+           "holdout_acc": tuple(holdout),
            "holdout_entropy": tuple(entropy)}
     for key in runs[0]:
         ref[key] = tuple(round(r[key], 4) if isinstance(r[key], float)

@@ -47,7 +47,7 @@ import multiprocessing
 import sys
 import tempfile
 import time
-from concurrent.futures import Future, ProcessPoolExecutor
+from concurrent.futures import ProcessPoolExecutor
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -63,6 +63,7 @@ import numpy as np  # noqa: E402
 
 from sivo_tpu.config import SystemConfig  # noqa: E402
 from sivo_tpu.io import synthetic  # noqa: E402
+from tools.jax_regime import land_fetches  # noqa: E402
 
 N_FRAMES = 434  # one super-lap (404) + the 30 frames re-driving the start
 VOCABULARY = ROOT / "sivo_tpu" / "place" / "data" / "orbvoc_synth.npz"
@@ -117,23 +118,6 @@ def frame_errors(est_cw: np.ndarray, gt_cw: np.ndarray) -> np.ndarray:
     return np.linalg.norm(ce @ R.T + (mu_g - R @ mu_e) - cg, axis=-1)
 
 
-def landed_packed(tree):
-    """``fetch_packed_async`` whose copy has landed when it returns."""
-    from sivo_tpu.utils import fetch
-
-    keys, arrs, flat_dev = fetch._pack_dispatch(tree)
-    fut = Future()
-    fut.set_result(np.asarray(flat_dev))
-    return fetch.PackedFuture(keys, arrs, fut)
-
-
-def landed_get(x):
-    """``device_get_async`` whose copy has landed when it returns."""
-    fut = Future()
-    fut.set_result(np.asarray(jax.device_get(x)))
-    return fut
-
-
 def main() -> None:
     args = sys.argv[1:]
     landed = "--landed" in args
@@ -148,11 +132,9 @@ def main() -> None:
     from sivo_tpu.runtime import frame as frame_mod
     from sivo_tpu.runtime.loopclosing import LoopCloser
     from sivo_tpu.runtime.system import System
-    from sivo_tpu.utils import fetch
 
     if landed:
-        fetch.fetch_packed_async = landed_packed
-        fetch.device_get_async = landed_get
+        land_fetches()
     t0 = time.perf_counter()
     cfg = SystemConfig()
     lap = synthetic.figure8_lap_frames()

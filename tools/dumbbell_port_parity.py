@@ -20,7 +20,7 @@ Like for like means:
   its XLA descriptor path on the CPU, whose float canvases give other
   bits. K2 stays on its XLA path, which is integer-exact.
 * **Regime.** The JAX sides' host fetches have landed when they return
-  (the ``--landed`` wrappers of ``dumbbell_jax_reference.py``), as on
+  (``tools/jax_regime.land_fetches``), as on
   the card; the port's copies of CPU tensors land at once, and the
   mapper's deferred admissions (``admit_waits``) are printed to show it.
 * **Random draws.** The RANSACs draw their minimal sets from
@@ -30,6 +30,15 @@ Like for like means:
   the frame count, the loop closer's Sim3 by the keyframe), so the
   lockstep meets only differences of code and rounding; side
   ``port_own`` runs with its own draws, as on the card.
+
+``--cell loop190`` or ``--cell loop40`` runs the same lockstep on
+``chip_smoke.py``'s loop world cells instead (phases 7 and 6): the
+bench loop world's 190 frames (``make_loop_world(seed=0, outer=16,
+inner=6)``, ``square_loop_trajectory(190, half=9.5, corner_r=3.5,
+jitter=0.03)``, ``ss=2``, rendered once into ``WORK_DIR/loop190.npz``),
+``System(max_keyframes=256, max_points=32768)``, ``track_frame``
+unpipelined as ``track_stereo`` runs it, with the offline vocabulary on
+loop190 and without it on loop40 (its first 40 frames).
 
 ``--stable-walk`` replaces the sequential selection walk of
 ``select/info.py`` in every side by one float64 numpy walk
@@ -72,7 +81,8 @@ Run from the repository root (CPU, 8 cores: 62-66 minutes for 434
 frames with two or three sides, 91 with ``--stable-walk``, the JAX
 side's pace; the renders ~3 minutes more if missing):
 ``JAX_PLATFORMS=cpu python tools/dumbbell_port_parity.py WORK_DIR
-[--frames N] [--sides jax,jax_xla,port,port_own] [--stable-walk]``;
+[--frames N] [--sides jax,jax_xla,port,port_own] [--stable-walk]
+[--cell dumbbell434|loop190|loop40]`` (loop190: ~30 minutes);
 the first side named is the one the others are compared with.
 """
 
@@ -99,6 +109,12 @@ SUMMARY_FIELDS = ("OK", "N_TRACKED", "N_REF", "N_CLOSE_TRACKED",
                   "N_CLOSE_FREE", "N_MATCHES_MOTION", "N_INLIERS1",
                   "N_INLIERS2", "N_SELECTED", "N_SEMANTIC", "USED_FALLBACK",
                   "MOT_N", "MOT_INL", "SEL_LAST_ACCEPT", "N_CANDIDATES")
+# each retired frame's record: these and SUMMARY_FIELDS lowercased
+# (chip_smoke.py's phase 11 record keeps the same names for the same
+# fields, but for the minted keypoints "sel")
+RETIRED_FIELDS = ("fid", "lost", "ref_kf", "kf", "since_kf", "queue",
+                  "busy", "n_kf_before", "rot_rate", "pose", "rot_dev",
+                  "sel")
 # the fields that are decisions: a frame lost, tracked, relocalized or
 # made a keyframe, its reference keyframe, retired early (crisis), a
 # loop closed, a GBA dispatched or applied; the others are counts
@@ -117,6 +133,48 @@ COUNTERS = ("keyframes", "points", "loops", "gba_dispatched", "gba_applied",
             "compactions", "ba_solves")
 
 
+# the cells: their renders, frames, System, vocabulary and whether
+# track_frame is pipelined (chip_smoke.py's phases 11, 7 and 6)
+CELLS = {
+    "dumbbell434": {"renders": "dumbbell404.npz", "frames": ref.N_FRAMES,
+                    "system": {"max_keyframes": 448, "max_points": 49152,
+                               "pipeline_depth": 3},
+                    "vocabulary": True, "pipeline": True},
+    "loop190": {"renders": "loop190.npz", "frames": 190,
+                "system": {"max_keyframes": 256, "max_points": 32768},
+                "vocabulary": True, "pipeline": False},
+    "loop40": {"renders": "loop190.npz", "frames": 40,
+               "system": {"max_keyframes": 256, "max_points": 32768},
+               "vocabulary": False, "pipeline": False},
+}
+
+
+def render_loop(work: Path) -> None:
+    """The loop world's 190 frames, made once per WORK_DIR."""
+    from sivo_tpu.config import SystemConfig
+    from sivo_tpu.io import synthetic
+
+    if (work / "loop190.npz").exists():
+        return
+    world = synthetic.make_loop_world(SystemConfig().camera, seed=0,
+                                      outer=16.0, inner=6.0)
+    left, right, cls = synthetic.render_sequence(world, loop_truth(190),
+                                                 ss=2)
+    np.savez(work / "loop190.npz", left=left, right=right, cls=cls)
+
+
+def loop_truth(n: int) -> np.ndarray:
+    from sivo_tpu.io import synthetic
+
+    return synthetic.square_loop_trajectory(n_frames=190, half=9.5,
+                                            corner_r=3.5, jitter=0.03)[:n]
+
+
+def _loops(system) -> int:
+    lc = system.loop_closer
+    return 0 if lc is None else int(lc.loops_closed)
+
+
 # -- the two packages, behind one interface ------------------------------
 
 
@@ -124,7 +182,7 @@ class _Side:
     """One package's session on the lap, instrumented for the records."""
 
     def __init__(self, name: str, work: Path, n_frames: int,
-                 stable_walk: bool):
+                 stable_walk: bool, cell: str = "dumbbell434"):
         self.name = name
         self.stable_walk = stable_walk
         self.n_frames = n_frames
@@ -138,13 +196,15 @@ class _Side:
         # on the relocalization keyframe (index in the trajectory, record)
         self.repointed: list = []
         self.t0 = time.perf_counter()
-        z = np.load(work / "dumbbell404.npz")
+        self.cell = CELLS[cell]
+        z = np.load(work / self.cell["renders"])
         self.left, self.right, self.cls = z["left"], z["right"], z["cls"]
         self.lap = self.left.shape[0]
         self.setup()
         self.instrument()
-        self.system.attach_vocabulary(
-            self.voc_mod.load_npz(str(ref.VOCABULARY)))
+        if self.cell["vocabulary"]:
+            self.system.attach_vocabulary(
+                self.voc_mod.load_npz(str(ref.VOCABULARY)))
 
     # the package's own calls
 
@@ -192,6 +252,8 @@ class _Side:
             rec["sel"] = () if self.kf_created is None else tuple(
                 int(k) for k in np.flatnonzero(
                     side.to_np(ticket.result.sel_mask)))
+            assert set(rec) == set(RETIRED_FIELDS) | {
+                f.lower() for f in SUMMARY_FIELDS}, sorted(rec)
             side.retired.append(rec)
             return out
 
@@ -264,10 +326,10 @@ class _Side:
 
     def counters(self) -> dict:
         sy = self.system
-        lc, mp = sy.loop_closer, sy.map
+        mp = sy.map
         return {
             "keyframes": int(mp.n_keyframes), "points": int(mp.n_points),
-            "loops": int(lc.loops_closed), "gba_dispatched": len(self.gbas),
+            "loops": _loops(sy), "gba_dispatched": len(self.gbas),
             "gba_applied": sum(g["applied_frame"] is not None
                                for g in self.gbas),
             "crisis": int(getattr(sy, "crisis_frames", 0)),
@@ -283,11 +345,10 @@ class _Side:
         s = i % self.lap
         f = self.build(s)
         n_ret, n_rel = len(self.retired), len(self.relocs)
-        lc = self.system.loop_closer
-        before = lc.loops_closed
+        before = _loops(self.system)
         t0 = time.perf_counter()
-        self.system.track_frame(f, i * 0.1, pipeline=True)
-        self.closed_at += [i] * (lc.loops_closed - before)
+        self.system.track_frame(f, i * 0.1, pipeline=self.cell["pipeline"])
+        self.closed_at += [i] * (_loops(self.system) - before)
         front = {k: self.to_np(getattr(f, k)) for k in
                  ("xy", "level", "desc_u8", "valid", "semantic", "depth")}
         return {"frame": i, "ms": 1e3 * (time.perf_counter() - t0),
@@ -317,10 +378,9 @@ class _Side:
     def finish(self) -> dict:
         self.frame[0] = self.n_frames
         n_ret = len(self.retired)
-        lc = self.system.loop_closer
-        before = lc.loops_closed
+        before = _loops(self.system)
         self.system.flush()
-        self.closed_at += [self.n_frames] * (lc.loops_closed - before)
+        self.closed_at += [self.n_frames] * (_loops(self.system) - before)
         sy = self.system
         poses = sy.frame_poses()
         tr = sy.tracker
@@ -331,7 +391,9 @@ class _Side:
                             if r.lost],
             "events": [{"frame": fr, **{k: e[k] for k in
                                         ("kf", "cand", "correction_m")}}
-                       for fr, e in zip(self.closed_at, lc.loop_events)],
+                       for fr, e in zip(self.closed_at,
+                                        getattr(sy.loop_closer,
+                                                "loop_events", []))],
             "gbas": self.gbas, "relocs": self.relocs,
             "admit_waits": getattr(sy.mapper, "admit_waits", None),
             "points_live": int(sy.map.pt_valid[: sy.map.n_points].sum()),
@@ -362,7 +424,6 @@ class _Jax(_Side):
         from sivo_tpu.config import SystemConfig
         from sivo_tpu.io import synthetic
         from sivo_tpu.io import trajectory as traj_io
-        from sivo_tpu.ops import pallas_orb
         from sivo_tpu.optim import ba_build, gba_cg, local_ba
         from sivo_tpu.place import vocabulary as voc_mod
         from sivo_tpu.runtime import frame as frame_mod
@@ -370,10 +431,10 @@ class _Jax(_Side):
         from sivo_tpu.runtime.loopclosing import LoopCloser
         from sivo_tpu.runtime.system import System
         from sivo_tpu.runtime.tracking import Tracker
-        from sivo_tpu.utils import fetch
+        from tools import jax_regime
 
         if self.name == "jax":  # K1 interpreted, u8 canvases
-            pallas_orb.use_pallas = lambda: True
+            jax_regime.use_k1()
         if self.stable_walk:
             import jax
 
@@ -391,8 +452,7 @@ class _Jax(_Side):
                     shapes, cov, pts, s2, ent, cand, th)
 
             info.sequential_selection_stereo = walk
-        fetch.fetch_packed_async = ref.landed_packed
-        fetch.device_get_async = ref.landed_get
+        jax_regime.land_fetches()
         self.jnp, self.synthetic, self.frame_mod = jnp, synthetic, frame_mod
         self.voc_mod, self.traj_io = voc_mod, traj_io
         self.mods = SimpleNamespace(System=System, Tracker=Tracker, ts=ts,
@@ -400,8 +460,7 @@ class _Jax(_Side):
                           gba_cg=gba_cg, LoopCloser=LoopCloser)
         cfg = SystemConfig()
         self.statics = frame_mod.make_statics(cfg)
-        self.system = System(cfg=cfg, max_keyframes=448, max_points=49152,
-                             pipeline_depth=3)
+        self.system = System(cfg=cfg, **self.cell["system"])
 
     def build(self, s: int):
         jnp = self.jnp
@@ -443,8 +502,7 @@ class _Port(_Side):
                           gba_cg=gba_cg, LoopCloser=LoopCloser)
         cfg = SystemConfig()
         self.statics = frame_mod.make_statics(cfg)
-        self.system = System(cfg=cfg, device=self.dev, max_keyframes=448,
-                             max_points=49152, pipeline_depth=3)
+        self.system = System(cfg=cfg, device=self.dev, **self.cell["system"])
         if self.name == "port":
             self.jax_draws()
         if self.stable_walk:
@@ -558,11 +616,11 @@ def stable_walk(cov, pts, sigma2, ent, cand, th, fx, fy, baseline,
     return sel, P.astype(np.float32), np.float32(last)
 
 
-def _worker(name: str, work: str, n_frames: int, stable: bool,
+def _worker(name: str, work: str, n_frames: int, stable: bool, cell: str,
             conn) -> None:
     """One side in its own process, stepped by the parent's messages."""
     try:
-        side = SIDES[name](name, Path(work), n_frames, stable)
+        side = SIDES[name](name, Path(work), n_frames, stable, cell)
         conn.send(("ready", None))
         last = []
         while True:
@@ -685,7 +743,12 @@ def summarize(name: str, final: dict, gt: np.ndarray, n: int) -> dict:
 
 def main() -> None:
     args = sys.argv[1:]
-    n_frames, sides = ref.N_FRAMES, ["jax", "port", "port_own"]
+    sides, cell = ["jax", "port", "port_own"], "dumbbell434"
+    if "--cell" in args:
+        k = args.index("--cell")
+        cell = args[k + 1]
+        del args[k: k + 2]
+    n_frames = CELLS[cell]["frames"]
     if "--frames" in args:
         k = args.index("--frames")
         n_frames = int(args[k + 1])
@@ -704,11 +767,15 @@ def main() -> None:
     from sivo_tpu.config import SystemConfig
     from sivo_tpu.io import synthetic
 
-    ref.render_lap(work)
+    if cell == "dumbbell434":
+        ref.render_lap(work)
+    else:
+        render_loop(work)
     tcfg = SystemConfig().tracking
     cfg = {k: getattr(tcfg, k) for k in ("th_ref_ratio", "close_tracked_max",
                                          "close_nontracked_min")}
-    gt = synthetic.figure8_trajectory(n_frames)
+    gt = (synthetic.figure8_trajectory(n_frames) if cell == "dumbbell434"
+          else loop_truth(n_frames))
     print(f"renders ready in {time.perf_counter() - t0:.0f} s; sides "
           f"{sides}, {n_frames} frames"
           + ", the selection walk in float64" * stable, flush=True)
@@ -719,7 +786,7 @@ def main() -> None:
         parent, child = ctx.Pipe()
         procs[name] = ctx.Process(target=_worker, daemon=True,
                                   args=(name, str(work), n_frames, stable,
-                                        child))
+                                        cell, child))
         procs[name].start()
         conns[name] = parent
 
@@ -856,7 +923,7 @@ def main() -> None:
         {"records": records, "first": first, "refs": refs,
          "fronts": fronts}, default=str))
     for name, r in refs.items():
-        print(f"REF_DUMBBELL {name} " + json.dumps(
+        print(f"REF_{cell.upper()} {name} " + json.dumps(
             {k: v for k, v in r.items() if k != "gba"}))
     print(f"{time.perf_counter() - t0:.0f} s")
 

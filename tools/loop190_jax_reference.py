@@ -16,8 +16,16 @@ relocalizations. Matmuls run at HIGHEST precision, as in the tests. The
 JAX mapper and loop closer apply a stage when its fetch thread's future
 is done, so the numbers can differ between runs.
 
-Run from the repository root (CPU; tens of minutes):
-``JAX_PLATFORMS=cpu python tools/loop190_jax_reference.py``
+``--k1`` describes keypoints with K1's semantics, as the port's kernel
+does (``tools/jax_regime.use_k1``); without it the JAX package takes its
+CPU XLA descriptor path. ``--landed`` runs in the card's regime, every
+host fetch landed when it returns (``tools/jax_regime.land_fetches``).
+The last line is a ``REF_LOOP`` entry naming both.
+
+Run from the repository root (CPU; ~26 minutes, ~30 with ``--k1``; two
+runs can go side by side):
+``JAX_PLATFORMS=cpu python tools/loop190_jax_reference.py [--k1]
+[--landed]``
 """
 
 from __future__ import annotations
@@ -44,6 +52,7 @@ from sivo_tpu.place import vocabulary as voc_mod  # noqa: E402
 from sivo_tpu.runtime import frame as frame_mod  # noqa: E402
 from sivo_tpu.runtime.loopclosing import LoopCloser  # noqa: E402
 from sivo_tpu.runtime.system import System  # noqa: E402
+from tools.jax_regime import land_fetches, take_flags, use_k1  # noqa: E402
 
 N_FRAMES = 190
 VOCABULARY = (Path(__file__).resolve().parents[1] / "sivo_tpu" / "place"
@@ -51,6 +60,11 @@ VOCABULARY = (Path(__file__).resolve().parents[1] / "sivo_tpu" / "place"
 
 
 def main() -> None:
+    _, flags = take_flags(sys.argv[1:], "--k1", "--landed")
+    if flags["k1"]:
+        use_k1()
+    if flags["landed"]:
+        land_fetches()
     t0 = time.perf_counter()
     cfg = SystemConfig()
     world = synthetic.make_loop_world(cfg.camera, seed=0, outer=16.0,
@@ -109,6 +123,13 @@ def main() -> None:
           f"{getattr(system, 'reloc_attempts', 0)} attempts, cap binds "
           f"{lc.cap_binds}, {time.perf_counter() - t0:.0f} s")
     assert np.isfinite(poses).all()
+    print("REF_LOOP " + json.dumps({
+        "descriptors": "k1" if flags["k1"] else "xla",
+        "landed": flags["landed"], "loops": lc.loops_closed,
+        "lost": system.n_lost(), "ate": round(float(ate), 4),
+        "keyframes": m.n_keyframes,
+        "events": [[e["kf"], e["cand"]] for e in events],
+        "gba": [gba["dense"], gba["pcg"], gba["applied"]]}))
 
 
 if __name__ == "__main__":

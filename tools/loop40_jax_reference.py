@@ -13,12 +13,20 @@ called by the mapper's triangulation only). Matmuls run at HIGHEST
 precision, as in the tests. The JAX mapper applies a stage when its
 fetch thread's future is done, so the numbers can differ between runs.
 
-Run from the repository root (CPU; a few minutes):
-``JAX_PLATFORMS=cpu python tools/loop40_jax_reference.py``
+``--k1`` describes keypoints with K1's semantics, as the port's kernel
+does (``tools/jax_regime.use_k1``); without it the JAX package takes its
+CPU XLA descriptor path. ``--landed`` runs in the card's regime, every
+host fetch landed when it returns (``tools/jax_regime.land_fetches``).
+The last line is a ``REF_SYSTEM`` entry naming both.
+
+Run from the repository root (CPU; ~4 minutes, ~5 with ``--k1``):
+``JAX_PLATFORMS=cpu python tools/loop40_jax_reference.py [--k1]
+[--landed]``
 """
 
 from __future__ import annotations
 
+import json
 import sys
 import time
 from pathlib import Path
@@ -37,11 +45,17 @@ from sivo_tpu.config import SystemConfig  # noqa: E402
 from sivo_tpu.io import synthetic  # noqa: E402
 from sivo_tpu.runtime import frame as frame_mod  # noqa: E402
 from sivo_tpu.runtime.system import System  # noqa: E402
+from tools.jax_regime import land_fetches, take_flags, use_k1  # noqa: E402
 
 N_FRAMES = 40
 
 
 def main() -> None:
+    _, flags = take_flags(sys.argv[1:], "--k1", "--landed")
+    if flags["k1"]:
+        use_k1()
+    if flags["landed"]:
+        land_fetches()
     t0 = time.perf_counter()
     cfg = SystemConfig()
     world = synthetic.make_loop_world(cfg.camera, seed=0, outer=16.0,
@@ -76,6 +90,12 @@ def main() -> None:
           f"{m.n_points} ({int(m.pt_valid[: m.n_points].sum())} live), "
           f"triangulated {minted[0]}, {time.perf_counter() - t0:.0f} s")
     assert np.isfinite(poses).all()
+    print("REF_SYSTEM " + json.dumps({
+        "descriptors": "k1" if flags["k1"] else "xla",
+        "landed": flags["landed"], "lost": system.n_lost(),
+        "ate": round(float(ate), 4), "keyframes": m.n_keyframes,
+        "ba_solves": system.timer.counts.get("map.ba_apply", 0),
+        "triangulated": minted[0]}))
 
 
 if __name__ == "__main__":
