@@ -659,3 +659,37 @@ def test_kabsch_and_ransac_discard_a_non_finite_hypothesis(cuda,
         pose = res.pose.cpu().numpy()
         assert bool(res.ok) and np.isfinite(pose).all()
         np.testing.assert_allclose(pose, T, rtol=0, atol=1e-3)
+
+
+def test_point_block_inverse_on_card_matches_cpu(cuda):
+    """The PCG global BA's point-block inverse (``optim/gba_cg.py``,
+    ``torch.linalg.inv_ex`` of the damped 3x3 blocks ``Hpp_d``) on the
+    card against LAPACK on the CPU, on the same float32 blocks: SPD
+    blocks of a point block's scale (1e4) whose condition numbers span
+    1e1 to 1e6, as a low-parallax point's block does as the damping
+    falls (the saved problems of phases 7 and 11 reach 5e5,
+    tools/pcg_repeat.py --trace). Each inverse differs from the other by
+    no more than half the block's condition number times float32's
+    epsilon, relative to the float64 inverse: about four times the most
+    measured on those problems' blocks (0.11), so that an inverse route
+    at fault shows."""
+    rng = np.random.default_rng(12)
+    n = 256
+    q, _ = torch.linalg.qr(torch.from_numpy(rng.normal(size=(n, 3, 3))))
+    cond = torch.logspace(1, 6, n, dtype=torch.float64)
+    mid = torch.exp(torch.log(cond) * torch.from_numpy(
+        rng.uniform(0, 1, n)))
+    eig = 1e4 * torch.stack([torch.ones(n), 1 / mid, 1 / cond], -1)
+    blocks = (q * eig[:, None, :]) @ q.transpose(-1, -2)
+    b32 = blocks.float()
+    inv64 = torch.linalg.inv(b32.double())
+    cond32 = torch.linalg.cond(b32.double())
+    inv_cpu, info_cpu = torch.linalg.inv_ex(b32)
+    inv_card, info_card = torch.linalg.inv_ex(b32.to(cuda))
+    assert not info_cpu.any() and not info_card.cpu().any()
+    rel = (torch.linalg.matrix_norm(inv_card.cpu().double()
+                                    - inv_cpu.double())
+           / torch.linalg.matrix_norm(inv64))
+    eps = float(np.finfo(np.float32).eps)
+    assert (rel <= 0.5 * cond32 * eps).all(), float(
+        (rel / (cond32 * eps)).max())

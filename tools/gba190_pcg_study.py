@@ -22,11 +22,13 @@ that problem to ``OUT_DIR/prob_lap.pt``.
 ``python3 tools/gba190_pcg_study.py cpu OUT_DIR`` (the CPU, a few
 minutes a problem) prints the same table for every ``prob*.pt`` in
 ``OUT_DIR``, then the noise of ``chip_smoke.py``'s PCG solve: the float32
-solve's distances to its float64 solve and to itself on 8 orders of the
-observations, and how often the float32 gate would fail with each
-order in turn taken as the card's solve, its noise bound made from
-float64 and order 0 (one order) or orders 0-3 (``PCG_SHUFFLES``); then
-the float64 solve's distances to itself on the same 8 orders.
+solve's distances to its float64 solve and to itself on 16 orders of
+the observations (``chip_smoke.pcg_orders``), and how often the float32
+gate would fail with each order after the first S in turn taken as the
+card's solve, its noise bound made from float64 and orders 0 to S - 1,
+for S of 1, 4 and ``PCG_SHUFFLES`` (8); then the float64 solve's
+distances to itself on the same 16 orders. ``tools/pcg_repeat.py``
+holds the card's own solves to the same bounds.
 
 The table: every valid keyframe's largest |log(T_a^-1 T_b)| component,
 its largest over the keyframes (and which keyframe, with its
@@ -53,7 +55,6 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))
 
 import chip_smoke as cs  # noqa: E402
-from sivo_tpu_torch.geometry.projection import CameraParams  # noqa: E402
 from sivo_tpu_torch.optim import gba_cg, local_ba  # noqa: E402
 
 # past ~70 rejected steps float32's lambda overflows (x4 per rejection)
@@ -147,9 +148,8 @@ def card(out_dir: str, runs: int) -> None:
     for i in range(runs):
         prob, cam = cs.run_loop_session(cfg, left, right, sems, dev,
                                         voc)[-1]
-        torch.save({"prob": tuple(t.cpu() for t in prob),
-                    "cam": tuple(cam)},
-                   os.path.join(out_dir, f"prob{i}.pt"))
+        cs.save_pcg_problem(os.path.join(out_dir, f"prob{i}.pt"), prob,
+                            cam)
         analyse(f"run {i} (card)", prob, cam)
 
 
@@ -185,15 +185,15 @@ def lap(out_dir: str, renders: str) -> None:
     if not kept:
         sys.exit(f"no PCG global BA in {i} frames")
     os.makedirs(out_dir, exist_ok=True)
-    torch.save({"prob": kept[0][0], "cam": kept[0][1]},
-               os.path.join(out_dir, "prob_lap.pt"))
     prob = local_ba.BAProblem(*kept[0][0])
+    cs.save_pcg_problem(os.path.join(out_dir, "prob_lap.pt"), prob,
+                        kept[0][1])
     print(f"the first PCG global BA began at frame {i - 1}: "
           f"{int(prob.kf_valid.sum())} keyframes, {int(prob.pt_valid.sum())} "
           f"points, {int(prob.obs_valid.sum())} observations", flush=True)
 
 
-def float_noise(prob, cam, shuffles: int = 8) -> None:
+def float_noise(prob, cam, shuffles: int = 2 * cs.PCG_SHUFFLES) -> None:
     """``chip_smoke.py``'s card-against-CPU distances (``_pcg_distance``)
     between the CPU's float32 solve of ``PCG_ITERATIONS`` steps and its
     float64 solve, and the same solve on ``shuffles`` orders of the
@@ -204,34 +204,24 @@ def float_noise(prob, cam, shuffles: int = 8) -> None:
     prob64 = cs._f64(prob)
     base64 = cs._pcg_solve(prob64, cam)
     pv = prob.pt_valid
-    rows = [("float64", cs._pcg_distance(base64, base, pv))]
-    for seed in range(shuffles):
-        rows.append((f"shuffle {seed}", cs._pcg_distance(
-            cs._pcg_shuffled(prob, cam, seed), base, pv)))
+    rows = [("float64", cs._pcg_distance(base64, base, pv))] + [
+        (f"shuffle {seed}", cs._pcg_distance(sh, base, pv))
+        for seed, sh in enumerate(cs.pcg_orders(prob, cam,
+                                                range(shuffles)))]
     for label, d in rows:
         print(f"  {cs.PCG_ITERATIONS} steps, {label} against float32: "
               + ", ".join(f"{k} {v:.3g}" for k, v in d.items()), flush=True)
 
-    def fails(floors, card):
-        """The float32 gates ``chip_smoke.phase_pcg`` would fail, with the
-        noise from ``floors`` and the card's solve taken as ``card``."""
-        floor = {k: max(abs(f[k]) for f in floors) for k in floors[0]}
-        bad = [k for k, v in cs.PCG_TOLS.items()
-               if card[k] > max(v, 2 * floor[k])]
-        return bad + (["inlier"] if card["inlier_differ"]
-                      > 2 * floor["inlier_differ"] else [])
-
     d = [r[1] for r in rows]  # float64, then the orders
-    one = {k: fails(d[:2], d[1 + k]) for k in range(1, shuffles)}
-    four = {k: fails(d[:1 + cs.PCG_SHUFFLES], d[1 + k])
-            for k in range(cs.PCG_SHUFFLES, shuffles)}
-    print(f"  taking order k as the card's solve: the bound from float64 "
-          f"and order 0 fails for {sum(map(bool, one.values()))} of "
-          f"{len(one)} ({one}); from float64 and orders 0-"
-          f"{cs.PCG_SHUFFLES - 1} for {sum(map(bool, four.values()))} of "
-          f"{len(four)} ({four})", flush=True)
-    for seed in range(shuffles):
-        d = cs._pcg_distance(cs._pcg_shuffled(prob64, cam, seed), base64, pv)
+    for n in sorted({1, 4, cs.PCG_SHUFFLES}):
+        fails = {k: cs.pcg_misses(d[1 + k], d[:1 + n])
+                 for k in range(n, shuffles)}
+        print(f"  taking order k as the card's solve: the bound from "
+              f"float64 and orders 0-{n - 1} fails for "
+              f"{sum(map(bool, fails.values()))} of {len(fails)} "
+              f"({fails})", flush=True)
+    for seed, sh in enumerate(cs.pcg_orders(prob64, cam, range(shuffles))):
+        d = cs._pcg_distance(sh, base64, pv)
         print(f"  {cs.PCG_ITERATIONS} steps in float64, shuffle {seed} "
               f"against float64: " + ", ".join(f"{k} {v:.3g}"
                                                 for k, v in d.items()),
@@ -240,9 +230,7 @@ def float_noise(prob, cam, shuffles: int = 8) -> None:
 
 def cpu(out_dir: str) -> None:
     for path in sorted(glob.glob(os.path.join(out_dir, "prob*.pt"))):
-        saved = torch.load(path)
-        prob = local_ba.BAProblem(*saved["prob"])
-        cam = CameraParams(*saved["cam"])
+        prob, cam, _ = cs.load_pcg_problem(path)
         analyse(f"{os.path.basename(path)} (CPU)", prob, cam)
         float_noise(prob, cam)
 

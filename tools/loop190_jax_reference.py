@@ -12,9 +12,10 @@ max_points=32768)`` with the offline vocabulary
 each frame and ``flush``. Prints loops closed and each loop event,
 which global BA path ran (dense Schur or PCG) and how many solutions
 were applied, lost frames, keyframes, ATE over ``frame_poses()`` and
-relocalizations. Matmuls run at HIGHEST precision, as in the tests. The
-JAX mapper and loop closer apply a stage when its fetch thread's future
-is done, so the numbers can differ between runs.
+relocalizations, and on its last line the lost frames and the frames
+whose call closed a loop. Matmuls run at HIGHEST precision, as in the
+tests. The JAX mapper and loop closer apply a stage when its fetch
+thread's future is done, so the numbers can differ between runs.
 
 ``--k1`` describes keypoints with K1's semantics, as the port's kernel
 does (``tools/jax_regime.use_k1``); without it the JAX package takes its
@@ -23,7 +24,8 @@ host fetch landed when it returns (``tools/jax_regime.land_fetches``).
 The last line is a ``REF_LOOP`` entry naming both.
 
 Run from the repository root (CPU; ~26 minutes, ~30 with ``--k1``; two
-runs can go side by side):
+runs can go side by side; ~55 minutes each two at a time beside other
+jobs):
 ``JAX_PLATFORMS=cpu python tools/loop190_jax_reference.py [--k1]
 [--landed]``
 """
@@ -97,17 +99,23 @@ def main() -> None:
     local_ba.global_bundle_adjustment = counted_dense
     gba_cg.gba_cg_begin = counted_begin
     LoopCloser._gba_apply = counted_apply
+    closed_at = []
     for i in range(N_FRAMES):
         cls, conf, ent = synthetic.structured_semantics(cls_maps[i], seed=7)
         f = frame_mod.build_frame_nosegnet(
             statics, jnp.asarray(left[i]), jnp.asarray(right[i]),
             jnp.asarray(cls), jnp.asarray(conf), jnp.asarray(ent))
+        before = system.loop_closer.loops_closed
         system.track_frame(f, i * 0.1)
+        closed_at += [i] * (system.loop_closer.loops_closed - before)
         if i % 20 == 19:
             print(f"frame {i + 1}: keyframes {system.map.n_keyframes}, "
                   f"loops {system.loop_closer.loops_closed}, "
                   f"{time.perf_counter() - t0:.0f} s", flush=True)
+    before = system.loop_closer.loops_closed
     system.flush()
+    closed_at += [N_FRAMES] * (system.loop_closer.loops_closed - before)
+    lost_at = [i for i, r in enumerate(system.tracker.trajectory) if r.lost]
     poses = system.frame_poses()
     ate = synthetic.ate_rmse(poses, gt)
     m, lc = system.map, system.loop_closer
@@ -129,7 +137,8 @@ def main() -> None:
         "lost": system.n_lost(), "ate": round(float(ate), 4),
         "keyframes": m.n_keyframes,
         "events": [[e["kf"], e["cand"]] for e in events],
-        "gba": [gba["dense"], gba["pcg"], gba["applied"]]}))
+        "gba": [gba["dense"], gba["pcg"], gba["applied"]],
+        "lost_frames": lost_at, "closed_at": closed_at}))
 
 
 if __name__ == "__main__":
